@@ -1,0 +1,18 @@
+"""dreamer_tpu_torch — the PyTorch/CUDA port of dreamer_tpu for one NVIDIA H100.
+
+A second package beside the JAX one, which stays the reference: module names
+mirror ``dreamer_tpu`` so that each counterpart is easy to find.  The port
+imports torch, numpy and the standard library only; it reads the same
+``configs/*.yaml`` with its own small YAML reader.  Every Pallas kernel on a
+ported path is a hand-written CUDA kernel under ``csrc/``, built with nvcc on
+first use and bound with ctypes (``ops/``), each beside a plain PyTorch
+version that the CPU runs.
+
+Ported so far: the serving path, the policy programs of
+``dreamer_tpu/train/step.py`` (``train.step.Policy``), with the GRU-cell and
+fused conv-encoder kernels; ``bridge`` moves parameters from the JAX trees.
+"""
+
+__version__ = "0.1.0"
+
+from dreamer_tpu_torch.config import DreamerConfig  # noqa: F401

@@ -1,0 +1,90 @@
+"""The world-model networks of the serving path (``dreamer_tpu/nets/wm_nets.py``).
+
+- conv encoder ``enc_conv0..3``: 4x [Conv(k4, s2, p1) + SiLU], channels
+  3 -> f1 -> f2 -> 2*f2 -> 4*f2; weights OIHW.  It runs as one fused kernel
+  (``ops.conv_cuda``) that also normalises the uint8 frames, so
+  ``encode_obs`` takes uint8 frames where the JAX method takes frames
+  already normalised to [-0.5, 0.5].
+- posterior head: Dense(enc_hidden)+LN+SiLU -> Dense(rows*classes) on
+  [features ‖ h].
+- GRU: h' = GRU([flat(z) ‖ a], h).
+
+The dynamics, reward, continue and decoder heads come with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from dreamer_tpu_torch.config import WorldModelConfig
+from dreamer_tpu_torch.nets.gru import GRUCell
+from dreamer_tpu_torch.nets.layout import KernelLayout
+from dreamer_tpu_torch.nets.mlp import MLP, lecun_normal_
+from dreamer_tpu_torch.ops.conv_cuda import encoder_forward, encoder_kernel_layout
+
+
+class EncoderConv(nn.Module):
+    """Parameters of one k4/s2/p1 conv: ``weight`` (Co, Ci, 4, 4), ``bias`` (Co,)."""
+
+    def __init__(self, cin: int, cout: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, 4, 4))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        with torch.no_grad():
+            lecun_normal_(self.weight, 16 * cin, generator)
+
+
+class WMNets(nn.Module):
+    def __init__(self, cfg: WorldModelConfig, action_dim: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        f1, f2 = cfg.encoder_filters_1, cfg.encoder_filters_2
+        chans = [3, f1, f2, 2 * f2, 4 * f2]
+        self.enc_convs = nn.ModuleList(EncoderConv(chans[i], chans[i + 1], generator)
+                                       for i in range(4))
+        self.feat_dim = (cfg.obs_size[0] // 16) * (cfg.obs_size[1] // 16) * chans[-1]
+        self.posterior_head = MLP(self.feat_dim + cfg.hidden_dim, [cfg.encoder_hidden],
+                                  cfg.latent_dim, dtype, generator)
+        self.gru = GRUCell(cfg.latent_dim + action_dim, cfg.hidden_dim, dtype, generator)
+        self._enc_layout = KernelLayout(lambda *p: encoder_kernel_layout(
+            p[0::2], p[1::2], self.dtype))
+
+    def encoder_weights(self):
+        """The encoder kernel's operands (HWIO weights, float32 biases), made
+        once per weight load."""
+        return self._enc_layout.get(*[t for c in self.enc_convs for t in (c.weight, c.bias)])
+
+    def prepare_kernels(self) -> None:
+        """Make the kernel-layout weight copies now (after a load) rather than
+        on the first call."""
+        self.encoder_weights()
+        self.gru.kernel_weights()
+
+    def encode_obs(self, obs_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 frames (..., H, W, 3) -> flat features (..., F) in the
+        compute dtype, flattened in (h, w, c) order."""
+        lead = obs_u8.shape[:-3]
+        x = obs_u8.reshape((-1,) + tuple(obs_u8.shape[-3:])).contiguous()
+        ws, bs = self.encoder_weights()
+        return encoder_forward(x, ws, bs).reshape(lead + (-1,))
+
+    def posterior_logits(self, feat: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """[features ‖ h] -> (..., rows, classes) latent logits."""
+        x = torch.cat([feat.to(self.dtype), h.to(self.dtype)], dim=-1)
+        logits = self.posterior_head(x)
+        return logits.reshape(logits.shape[:-1] + (self.cfg.latent_rows,
+                                                   self.cfg.latent_classes))
+
+    def gru_step(self, z_flat: torch.Tensor, action: torch.Tensor,
+                 h: torch.Tensor) -> torch.Tensor:
+        """h' = GRU([flat(z) ‖ a], h), in the compute dtype."""
+        x = torch.cat([z_flat, action], dim=-1)
+        lead = x.shape[:-1]
+        out = self.gru(x.reshape(-1, x.shape[-1]), h.reshape(-1, h.shape[-1]))
+        return out.reshape(lead + (self.cfg.hidden_dim,))

@@ -1,0 +1,157 @@
+"""The parameter bridge: exact round trips, the keys it refuses, and the
+committed flagship policy (checkpoints/carracer_r3/agent_best) restored with
+the JAX package's own checkpoint code and served by both packages.
+
+The flagship comparison runs in float32 (the export's own dtype) so that the
+sampled latents match exactly; deterministic actions then agree to 1e-4 abs
+(float32 sums over 4096-wide features in another order; measured ~1e-6)."""
+
+import copy
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import configs, f32, jax_params, port_nets, t
+from dreamer_tpu_torch import bridge
+from dreamer_tpu_torch.train import Policy, PolicyNoise
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = os.path.join(ROOT, "configs", "fake_smoke.yaml")
+FLAGSHIP = os.path.join(ROOT, "configs", "car_racer.yaml")
+AGENT_BEST = os.path.join(ROOT, "checkpoints", "carracer_r3", "agent_best")
+
+
+@pytest.fixture(scope="module")
+def trees():
+    jcfg, cfg = configs(SMOKE, "float32")
+    wm, actor = jax_params(jcfg, seed=2)
+    return cfg, wm, actor
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def test_round_trip_is_exact(trees):
+    cfg, wm, actor = trees
+    nets, port_actor = port_nets(cfg, wm, actor)
+    wm_back, actor_back = bridge.export_wm(nets), bridge.export_actor(port_actor)
+    ported = {k: v for k, v in wm.items() if k not in bridge.DEFERRED_WM_KEYS}
+    assert set(wm_back) == set(ported) == {"enc_conv0", "enc_conv1", "enc_conv2",
+                                           "enc_conv3", "posterior_head", "gru"}
+    for expect, got in ((ported, wm_back), (actor, actor_back)):
+        want = dict(_leaves(expect))
+        have = dict(_leaves(got))
+        assert set(want) == set(have)
+        for path, v in want.items():
+            assert have[path].dtype == np.float32 and have[path].shape == v.shape, path
+            np.testing.assert_array_equal(have[path], v, err_msg="/".join(path))
+
+
+def test_layouts(trees):
+    cfg, wm, actor = trees
+    nets, port_actor = port_nets(cfg, wm, actor)
+    np.testing.assert_array_equal(f32(nets.enc_convs[1].weight),
+                                  wm["enc_conv1"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(f32(nets.posterior_head.denses[0].weight),
+                                  wm["posterior_head"]["Dense_0"]["kernel"].T)
+    np.testing.assert_array_equal(f32(port_actor.mu_head.weight), actor["mu_head"]["kernel"].T)
+    wi_t, wh_t, bi, bh = nets.gru.kernel_weights()
+    H = cfg.wm.hidden_dim
+    np.testing.assert_array_equal(f32(wi_t[H:2 * H, :wm["gru"]["kernel_i"].shape[0]]),
+                                  wm["gru"]["kernel_i"][:, H:2 * H].T)
+
+
+def test_kernel_layouts_are_made_at_load(trees):
+    cfg, wm, actor = trees
+    nets, _ = port_nets(cfg, wm, actor)
+    made = nets.gru.kernel_weights()
+    assert nets.gru.kernel_weights() is made  # reused, not rebuilt per call
+    wm2 = copy.deepcopy(wm)
+    wm2["gru"]["kernel_i"] *= 2.0
+    bridge.load_wm(nets, wm2)
+    remade = nets.gru.kernel_weights()
+    assert remade is not made
+    np.testing.assert_allclose(f32(remade[0]), 2.0 * f32(made[0]))
+
+
+def test_deferred_keys_are_skipped_and_unknown_keys_raise(trees):
+    cfg, wm, actor = trees
+    assert set(bridge.DEFERRED_WM_KEYS) == set(wm) - {
+        "enc_conv0", "enc_conv1", "enc_conv2", "enc_conv3", "posterior_head", "gru"}
+    nets, port_actor = port_nets(cfg, wm, actor)
+    bad = copy.deepcopy(wm)
+    bad["mystery_head"] = {"kernel": np.zeros((2, 2), np.float32)}
+    with pytest.raises(KeyError, match="mystery_head"):
+        bridge.load_wm(nets, bad)
+    bad = copy.deepcopy(actor)
+    bad["Dense_0"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="Dense_0/extra"):
+        bridge.load_actor(port_actor, bad)
+    bad = copy.deepcopy(wm)
+    del bad["gru"]["bias_h"]
+    with pytest.raises(KeyError, match="gru/bias_h"):
+        bridge.load_wm(nets, bad)
+    bad = copy.deepcopy(wm)
+    bad["enc_conv0"]["kernel"] = bad["enc_conv0"]["kernel"][:, :, :, :2]
+    with pytest.raises(ValueError, match="enc_conv0/kernel"):
+        bridge.load_wm(nets, bad)
+
+
+def test_flagship_agent_best_serves_the_same_actions(tmp_path):
+    """Restore the committed flagship export through the JAX package's own
+    checkpoint code, bridge it, and serve a few frames with both packages."""
+    from dreamer_tpu.rssm import RSSM as JaxRSSM
+    from dreamer_tpu.train.agent import AgentTrainer
+    from dreamer_tpu.train.step import Trainer
+    from dreamer_tpu.utils.checkpoint import CheckpointManager
+
+    jcfg, cfg = configs(FLAGSHIP, "float32")
+    jcfg.train.buffer_size = 8  # the Trainer's replay ring is not used here
+    key = jax.random.PRNGKey(0)
+    wm_shape = jax.eval_shape(JaxRSSM(jcfg.wm, jcfg.env.action_dim).init_params, key)
+    actor_shape, critic_shape = jax.eval_shape(
+        lambda k: AgentTrainer(jcfg).init_params(k, jcfg.wm.hidden_dim, jcfg.wm.latent_dim), key)
+    zeros = lambda tree: jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), tree)  # noqa: E731
+    target = {"wm": zeros(wm_shape), "actor": zeros(actor_shape),
+              "critic": zeros(critic_shape), "target_critic": zeros(critic_shape)}
+    tree = CheckpointManager(str(tmp_path)).restore_numpy(AGENT_BEST, target)
+    wm = jax.tree.map(lambda a: np.asarray(a, np.float32), tree["wm"])
+    actor = jax.tree.map(lambda a: np.asarray(a, np.float32), tree["actor"])
+    assert wm["gru"]["kernel_i"].shape == (32 * 32 + 3, 3 * 600)
+    assert float(np.abs(actor["mu_head"]["kernel"]).max()) > 0  # trained, not the zero init
+
+    policy = Policy(cfg, device="cpu")
+    bridge.load_wm(policy.rssm.nets, wm)
+    bridge.load_actor(policy.actor, actor)
+    trainer = Trainer(jcfg, jit=True)
+
+    n, rng = 2, np.random.default_rng(0)
+    obs = rng.integers(0, 256, (4, n, 64, 64, 3), dtype=np.uint8)
+    shape = (n, jcfg.wm.latent_rows, jcfg.wm.latent_classes)
+    key = jax.random.PRNGKey(5)
+    h_j, z_j = trainer.policy_reset(wm, jnp.asarray(obs[0]), key)
+    h_p, z_p = policy.policy_reset(t(obs[0]), t(jax.random.gumbel(key, shape)))
+    a_j, a_p = jnp.zeros((n, 3)), torch.zeros(n, 3)
+    for step in range(1, 4):
+        key = jax.random.fold_in(key, step)
+        done = np.array([step == 2, False])
+        h_j, z_j, a_j = trainer.policy_act_observe(wm, actor, h_j, z_j, a_j,
+                                                   jnp.asarray(obs[step]), jnp.asarray(done),
+                                                   key, deterministic=True)
+        k_obs, k_reset, _ = jax.random.split(key, 3)
+        noise = PolicyNoise(t(jax.random.gumbel(k_obs, shape)),
+                            t(jax.random.gumbel(k_reset, shape)), None)
+        h_p, z_p, a_p = policy.policy_act_observe(h_p, z_p, a_p, t(obs[step]), t(done),
+                                                  noise, deterministic=True)
+        np.testing.assert_array_equal(np.rint(f32(z_p)), np.rint(f32(z_j)))
+        np.testing.assert_allclose(f32(h_p), f32(h_j), atol=1e-4)
+        np.testing.assert_allclose(f32(a_p), f32(a_j), atol=1e-4)

@@ -1,0 +1,246 @@
+"""The kernel wrappers of dreamer_tpu_torch.ops: what they accept, that a CPU
+tensor takes the plain version (and is not counted as a launch), that any
+other device launches the kernel or raises, and the kernels' weight layouts.
+
+The tests marked ``cuda`` build and run the CUDA kernels; they skip without a
+card.  On the card: ``python -m pytest tests/test_torch_kernels.py -m cuda``.
+Tolerances there are each wrapper's ``tolerance`` (``ops.gru_cuda``: 2e-2
+abs/rel; ``ops.conv_cuda``: 2**-6 of the largest feature), the same that
+chip_smoke.py holds the kernels to; each module says why."""
+
+import re
+
+import pytest
+import torch
+
+from dreamer_tpu_torch.config import DreamerConfig
+from dreamer_tpu_torch.nets.gru import GRUCell
+from dreamer_tpu_torch.nets.layout import KernelLayout
+from dreamer_tpu_torch.nets.wm_nets import WMNets
+from dreamer_tpu_torch.ops import conv_cuda, cuda_build, gru_cuda
+from dreamer_tpu_torch.ops.conv_cuda import (encoder_forward, encoder_forward_plain,
+                                             encoder_kernel_layout)
+from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_cell_plain, gru_kernel_layout
+
+
+def gru_operands(n=5, i=13, h=11, dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x, hh = torch.randn(n, i, generator=g), torch.randn(n, h, generator=g)
+    cell = GRUCell(i, h, dtype, g)
+    return x.to(dtype), hh.to(dtype), cell.kernel_weights()
+
+
+def encoder_operands(n=3, size=32, filters=(4, 8), dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    cfg = DreamerConfig().wm
+    cfg.obs_size, cfg.encoder_filters_1, cfg.encoder_filters_2 = (size, size), *filters
+    nets = WMNets(cfg, 3, dtype, g)
+    with torch.no_grad():  # the init leaves them zero; a dropped bias must show
+        for c in nets.enc_convs:
+            c.bias.copy_(0.1 * torch.randn(c.bias.shape, generator=g))
+    obs = torch.randint(0, 256, (n, size, size, 3), dtype=torch.uint8, generator=g)
+    return obs, *nets.encoder_weights()
+
+
+@pytest.fixture
+def no_launch_counted():
+    before = (gru_cell.launches, encoder_forward.launches)
+    yield
+    assert (gru_cell.launches, encoder_forward.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_cell_on_cpu_is_the_plain_version(dtype, no_launch_counted):
+    x, h, ops = gru_operands(dtype=dtype)
+    out = gru_cell(x, h, *ops)
+    assert out.dtype == dtype and out.shape == h.shape
+    assert torch.equal(out, gru_cell_plain(x, h, *ops))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_on_cpu_is_the_plain_version(dtype, no_launch_counted):
+    obs, ws, bs = encoder_operands(dtype=dtype)
+    out = encoder_forward(obs, ws, bs)
+    assert out.dtype == dtype and out.shape == (3, 2 * 2 * 32)
+    assert torch.equal(out, encoder_forward_plain(obs, ws, bs))
+
+
+def test_gru_kernel_layout_pads_and_transposes():
+    g = torch.Generator().manual_seed(0)
+    wi, wh = torch.randn(13, 33, generator=g), torch.randn(11, 33, generator=g)
+    bi, bh = torch.randn(33, generator=g), torch.randn(33, generator=g)
+    wi_t, wh_t, bi2, bh2 = gru_kernel_layout(wi, wh, bi, bh, torch.bfloat16)
+    assert wi_t.shape == (33, 16) and wh_t.shape == (33, 16)
+    assert wi_t.dtype == torch.bfloat16 and bi2.dtype == torch.float32
+    assert torch.equal(wi_t[:, :13], wi.t().to(torch.bfloat16))
+    assert not wi_t[:, 13:].any() and not wh_t[:, 11:].any()
+    assert torch.equal(bi2, bi.to(torch.bfloat16).float())  # rounded as the flax cell does
+
+
+def test_encoder_kernel_layout_is_hwio():
+    w = torch.randn(8, 3, 4, 4)
+    (w_hwio,), (b,) = encoder_kernel_layout([w], [torch.zeros(8)], torch.bfloat16)
+    assert w_hwio.shape == (4, 4, 3, 8) and w_hwio.is_contiguous()
+    assert torch.equal(w_hwio[1, 2, 0], w[:, 0, 1, 2].to(torch.bfloat16))
+
+
+def test_gru_tolerance_is_below_the_size_of_its_output():
+    x, h, ops = gru_operands(16, 67, 64)
+    ref = gru_cell_plain(x, h, *ops)
+    assert bool((gru_cuda.tolerance(ref) < 0.1 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("fault", ["no_bias", "no_tap"])
+def test_encoder_tolerance_fails_a_faulty_kernel(fault):
+    """At the flagship widths, with the biases drawn as the card's checks draw
+    them, the encoder's tolerance is below the features' rms, and a version
+    that drops the biases, or one tap (ky = kx = 3) of every layer, fails it."""
+    obs, ws, bs = encoder_operands(2, 64, (32, 64), torch.bfloat16)
+    ref = encoder_forward_plain(obs, ws, bs)
+    tol = conv_cuda.tolerance(ref)
+    assert float(tol) < 0.5 * float(ref.float().square().mean().sqrt())
+    if fault == "no_bias":
+        bs = [torch.zeros_like(b) for b in bs]
+    else:
+        ws = [w.clone() for w in ws]
+        for w in ws:
+            w[3, 3] = 0
+    assert bool(((encoder_forward_plain(obs, ws, bs).float() - ref.float()).abs() > tol).any())
+
+
+def test_kernel_layout_rebuilds_only_when_a_parameter_changes():
+    p = torch.nn.Parameter(torch.ones(3))
+    builds = []
+    cache = KernelLayout(lambda q: builds.append(1) or q.clone() * 2)
+    first = cache.get(p)
+    assert cache.get(p) is first and len(builds) == 1
+    with torch.no_grad():
+        p.add_(1.0)  # in place: the version counter moves
+    assert torch.equal(cache.get(p), torch.full((3,), 4.0)) and len(builds) == 2
+    q = torch.nn.Parameter(torch.ones(3))  # a new tensor, e.g. after .to()
+    cache.get(q)
+    assert len(builds) == 3
+
+
+@pytest.mark.parametrize("case", ["x_rank", "rows", "wi_shape", "bias_dtype", "mixed_dtype",
+                                  "noncontig"])
+def test_gru_cell_rejects_bad_operands(case):
+    x, h, (wi_t, wh_t, bi, bh) = gru_operands()
+    if case == "x_rank":
+        x = x[None]
+    elif case == "rows":
+        h = h[:-1]
+    elif case == "wi_shape":
+        wi_t = wi_t[:, :-8]
+    elif case == "bias_dtype":
+        bi = bi.double()
+    elif case == "mixed_dtype":
+        h = h.to(torch.bfloat16)
+    else:
+        x = torch.cat([x, x], 1)[:, ::2]
+    with pytest.raises((ValueError, TypeError)):
+        gru_cell(x, h, wi_t, wh_t, bi, bh)
+
+
+@pytest.mark.parametrize("case", ["dtype", "channels", "size", "layers", "weight", "bias"])
+def test_encoder_rejects_bad_operands(case):
+    obs, ws, bs = encoder_operands()
+    if case == "dtype":
+        obs = obs.float()
+    elif case == "channels":
+        obs = obs[..., :2]
+    elif case == "size":
+        obs = obs[:, :24, :24]
+    elif case == "layers":
+        ws, bs = ws[:3], bs[:3]
+    elif case == "weight":
+        ws = [ws[0], ws[2], ws[1], ws[3]]
+    else:
+        bs = [b.double() for b in bs]
+    with pytest.raises((ValueError, TypeError)):
+        encoder_forward(obs, ws, bs)
+
+
+def test_off_the_cpu_the_wrappers_launch_or_raise(no_launch_counted):
+    """A tensor on a device that is neither the CPU nor CUDA gets no plain
+    fallback: the wrapper raises."""
+    x, h, ops = gru_operands()
+    meta = lambda ts: [t.to("meta") for t in ts]  # noqa: E731
+    with pytest.raises(TypeError, match="kernel takes"):
+        gru_cell(*meta([x, h, *ops]))
+    obs, ws, bs = encoder_operands()
+    with pytest.raises(TypeError, match="kernel takes"):
+        encoder_forward(obs.to("meta"), meta(ws), meta(bs))
+
+
+def test_each_kernel_source_carries_its_note():
+    srcs = {p.name: p.read_text() for p in cuda_build.sources()}
+    assert {"gru_cell.cu", "encoder.cu", "common.cu"} <= set(srcs)
+    for name, ref in (("gru_cell.cu", "dreamer_tpu/ops/gru_pallas.py"),
+                      ("encoder.cu", "dreamer_tpu/ops/conv_pallas.py")):
+        assert re.search(rf"Replaces: {re.escape(ref)}", srcs[name])
+        assert "What bounds it" in srcs[name] and "Design:" in srcs[name]
+        assert 'extern "C" int dt_' in srcs[name]
+
+
+def test_build_key_follows_the_sources(tmp_path, monkeypatch):
+    key = cuda_build._digest()
+    assert key == cuda_build._digest() and re.fullmatch(r"[0-9a-f]{16}", key)
+    for src in cuda_build.sources():
+        (tmp_path / src.name).write_text(src.read_text())
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    assert cuda_build._digest() == key
+    (tmp_path / "gru_cell.cu").write_text("// changed\n")
+    assert cuda_build._digest() != key
+
+
+# --------------------------------------------------------------------------- #
+# On the card
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(out, ref, tolerance):
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= tolerance(ref)).all()), float(diff.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,i,h", [(1, 1027, 600), (50, 1027, 600), (64, 1027, 600),
+                                   (3, 13, 11), (9, 67, 64)])
+def test_gru_kernel_matches_plain_on_card(cuda, n, i, h):
+    x, hh, ops = gru_operands(n, i, h, torch.bfloat16)
+    x, hh, ops = x.to(cuda), hh.to(cuda), [o.to(cuda) for o in ops]
+    before = gru_cell.launches
+    out = gru_cell(x, hh, *ops)
+    torch.cuda.synchronize()
+    assert gru_cell.launches == before + 1
+    _close(out, gru_cell_plain(x, hh, *ops), gru_cuda.tolerance)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,size,filters", [(1, 64, (32, 64)), (50, 64, (32, 64)),
+                                            (3, 64, (48, 96)),  # car_racer_64env.yaml
+                                            (3, 32, (4, 8)), (2, 16, (8, 8))])
+def test_encoder_kernel_matches_plain_on_card(cuda, n, size, filters):
+    obs, ws, bs = encoder_operands(n, size, filters, torch.bfloat16)
+    obs, ws, bs = obs.to(cuda), [w.to(cuda) for w in ws], [b.to(cuda) for b in bs]
+    before = encoder_forward.launches
+    out = encoder_forward(obs, ws, bs)
+    torch.cuda.synchronize()
+    assert encoder_forward.launches == before + 1
+    _close(out, encoder_forward_plain(obs, ws, bs), conv_cuda.tolerance)
+
+
+@pytest.mark.cuda
+def test_float32_is_refused_on_card(cuda):
+    x, hh, ops = gru_operands()
+    with pytest.raises(TypeError, match="bfloat16"):
+        gru_cell(x.to(cuda), hh.to(cuda), *[o.to(cuda) for o in ops])
