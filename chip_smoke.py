@@ -8,9 +8,10 @@ Phases, each printing its lines; any failure exits non-zero:
 1. card:    the card's name and power limit, as nvidia-smi prints them.
 2. build:   compile the CUDA kernels under dreamer_tpu_torch/csrc with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, in
-            bf16 at the flagship shapes (N = 1, 50, 64 rows or frames), with
-            its time beside the plain version's, one library call's and the
-            least time the card could take (its bound).
+            bf16 at the flagship shapes (GRU N = 1, 50, 64 rows; encoder
+            N = 1, 50, 64 and the warm start's 1250 frames), with its time
+            beside the plain version's, one library call's and the least
+            time the card could take (its bound).
 4. policy:  the serving path, Policy.policy_reset then policy_act_observe
             steps with a reset row partway, at the flagship widths of
             configs/car_racer.yaml (read by the port's own YAML reader) with
@@ -19,13 +20,35 @@ Phases, each printing its lines; any failure exits non-zero:
             against the plain versions on the CPU.  Prints ms/step.
 5. profile: torch.profiler over a few steps: the device's busy share of a
             step and the kernels that take the most device time.
-6. the "kernels" JSON line, then the result line.
+6. imagine: the whole-rollout imagination kernel against its plain version at
+            the flagship shapes (B 50, T 30), at the init's nearly flat prior
+            and at a peaked one: the whole rollout (first step whose
+            categories differ, share of equal categories); the launch itself
+            held step by step (``imagine_cuda.hold_rollout``: relaunched at
+            T = 1 over its own 1500 pre-step states, which must reproduce it
+            bit for bit, and that step held to the plain step by
+            ``compare_step``, near ties counted); the plain rollout's states
+            as one T = 1 launch (``hold_steps``); times and bound.
+7. ac_step: the learner's actor-critic half, Trainer.ac_step on a filled
+            replay ring at the flagship widths (B 50, T 50, warm start 25,
+            horizon 30, 2 epochs): 1 warm-up and 5 timed steps, the launch
+            counts of each step (imagine 2, encoder 2, GRU cell 2 x 24), finite
+            and unskipped updates, parameters that moved, the target critic's
+            tau step, actions and one-hot latents of a dream, the dream's
+            kernel launch held step by step (``hold_rollout``) at the path's
+            own weights and states, a profile of one step; then one
+            ac_update on the card against the same update on the CPU (plain
+            versions) from the same weights, batch and noise (a sanity check
+            guarding no kernel), with the readings of three faulty kernels
+            beside it for the record.
+8. the "kernels" JSON line, then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -50,6 +73,24 @@ POLICY_STEPS = 20
 WARMUP_STEPS = 2
 RESET_STEP = 10
 PROFILE_STEPS = 10
+AC_STEPS = 5
+# The flagship ring holds a few windows (capacity is no width): 4 x 50 steps.
+AC_RING = 200
+# A trained dynamics prior is peaked; at init it is nearly flat (mean top
+# probability about 0.09), where a kernel without unimix would still sample
+# the plain version's categories.  The per-step check runs again with the
+# prior's output layer scaled by this (mean top probability about 0.7).
+PEAKED_PRIOR = 8.0
+# Card against CPU for one ac_update, relative, on the losses and gradient
+# norms: the card's kernels and the CPU's plain versions round differently in
+# bf16 and may sample another latent category at a near tie, in the warm
+# start and in the dream, which moves that row's trajectory; each loss and
+# gradient norm is a mean over 50 x 30 terms.  A sanity check of the update
+# on the card, guarding no kernel: with a faulty kernel (``kernel_faults``)
+# the readings move no further than that drift, so each kernel is held by its
+# own check instead (per kernel at the path's shapes, and the imagination at
+# the path's own operands by ``hold_rollout``).
+AC_CARD_VS_CPU_RTOL = 0.1
 
 
 def fail(msg: str) -> None:
@@ -144,26 +185,26 @@ def check_gru(cfg, card: str) -> dict:
         torch.cuda.synchronize()
         ref = gru_cell_plain(x, h, wi_t, wh_t, bi, bh)
         worst = max(worst, max_err(out, ref, tolerance, f"kernels: gru_cell N={n}"))
-        if n in (1, 64):
-            # The library yardstick: torch.gru_cell has the same semantics.
-            w_ih = cell.kernel_i.detach().t().contiguous().to(torch.bfloat16)
-            w_hh = cell.kernel_h.detach().t().contiguous().to(torch.bfloat16)
-            b_ih = cell.bias_i.detach().to(torch.bfloat16)
-            b_hh = cell.bias_h.detach().to(torch.bfloat16)
-            t = {"ms": cuda_ms(lambda: gru_cell(x, h, wi_t, wh_t, bi, bh), 200),
-                 "plain_ms": cuda_ms(lambda: gru_cell_plain(x, h, wi_t, wh_t, bi, bh), 200),
-                 "library_ms": cuda_ms(lambda: torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh), 200)}
-            # x, h and the out in bf16; the unpadded gate weights (I + H, 3H)
-            # and the biases, which the flax cell rounds to bf16.
-            nbytes = 2 * (n * I + n * H + 3 * H * (I + H) + n * H) + 2 * 6 * H
-            t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 2 * n * 3 * H * (I + H))
-            times[n] = t
-            print(f"kernels: gru_cell N={n} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-                  f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
-                  f"({t['bound_by']}) on {card}", flush=True)
+        # The library yardstick: torch.gru_cell has the same semantics.
+        w_ih = cell.kernel_i.detach().t().contiguous().to(torch.bfloat16)
+        w_hh = cell.kernel_h.detach().t().contiguous().to(torch.bfloat16)
+        b_ih = cell.bias_i.detach().to(torch.bfloat16)
+        b_hh = cell.bias_h.detach().to(torch.bfloat16)
+        t = {"ms": cuda_ms(lambda: gru_cell(x, h, wi_t, wh_t, bi, bh), 200),
+             "plain_ms": cuda_ms(lambda: gru_cell_plain(x, h, wi_t, wh_t, bi, bh), 200),
+             "library_ms": cuda_ms(lambda: torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh), 200)}
+        # x, h and the out in bf16; the unpadded gate weights (I + H, 3H)
+        # and the biases, which the flax cell rounds to bf16.
+        nbytes = 2 * (n * I + n * H + 3 * H * (I + H) + n * H) + 2 * 6 * H
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 2 * n * 3 * H * (I + H))
+        times[n] = t
+        print(f"kernels: gru_cell N={n} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+              f"({t['bound_by']}) on {card}", flush=True)
+    # The line's times are at the AC path's shape: the warm start's 50 rows.
     return {"name": "gru_cell", "route": "cuda", "source": "dreamer_tpu_torch/csrc/gru_cell.cu",
             "replaces": "dreamer_tpu/ops/gru_pallas.py:111", "max_abs_err": worst,
-            **times[64]}
+            **times[cfg.train.batch_size]}
 
 
 def check_encoder(cfg, card: str) -> dict:
@@ -182,14 +223,16 @@ def check_encoder(cfg, card: str) -> dict:
     oihw = [c.weight.detach().to(torch.bfloat16) for c in nets.enc_convs]
     bias16 = [c.bias.detach().to(torch.bfloat16) for c in nets.enc_convs]
     Hf, Wf = cfg.wm.obs_size
+    # Serving's 1 and 64 envs, and the AC path's B x Tw frames of a warm start.
+    n_ac = cfg.train.batch_size * (cfg.train.sequence_length // 2)
     worst, times = 0.0, {}
-    for n in (1, 50, 64):
+    for n in (1, 50, 64, n_ac):
         obs = torch.randint(0, 256, (n, Hf, Wf, 3), dtype=torch.uint8, generator=gen).cuda()
         out = encoder_forward(obs, ws, bs)
         torch.cuda.synchronize()
         ref = encoder_forward_plain(obs, ws, bs)
         worst = max(worst, max_err(out, ref, tolerance, f"kernels: encoder N={n}"))
-        if n in (1, 64):
+        if n != 50:
             def library():
                 # The cuDNN yardstick: four bf16 conv2d + SiLU, NHWC out.
                 x = (obs.float() / 255.0 - 0.5).to(torch.bfloat16).permute(0, 3, 1, 2)
@@ -212,9 +255,10 @@ def check_encoder(cfg, card: str) -> dict:
             print(f"kernels: encoder N={n} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
                   f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
                   f"({t['bound_by']}) on {card}", flush=True)
+    # The line's times are at the AC path's shape.
     return {"name": "encoder", "route": "cuda", "source": "dreamer_tpu_torch/csrc/encoder.cu",
             "replaces": "dreamer_tpu/ops/conv_pallas.py:144", "max_abs_err": worst,
-            **times[64]}
+            **times[n_ac]}
 
 
 def run_policy(policy, cfg, card: str) -> None:
@@ -340,6 +384,351 @@ def check_policy_vs_cpu(cfg) -> None:
             conv_cuda.tolerance, f"policy: card vs cpu plain, N={n}, features")
 
 
+def imagine_setup(cfg, prior_scale: float = 1.0):
+    """Seeded flagship world model and actor (every all-zero parameter drawn),
+    their imagine-kernel operands, and a start state and noise for B x T."""
+    import torch
+
+    from dreamer_tpu_torch.core.dists import sample_gumbel
+    from dreamer_tpu_torch.nets import Actor, WMNets
+
+    c, a = cfg.wm, cfg.agent
+    gen = torch.Generator().manual_seed(3)
+    nets = WMNets(c, cfg.env.action_dim, torch.bfloat16, gen)
+    actor = Actor(c.hidden_dim + c.latent_dim, cfg.env.action_dim, a.actor_hidden_1,
+                  a.actor_hidden_2, a.min_std, torch.bfloat16, gen)
+    draw_zero_params([nets, actor], gen)
+    with torch.no_grad():
+        nets.dyn_head.denses[2].weight.mul_(prior_scale)
+    nets.cuda()
+    actor.cuda()
+    weights = [*actor.imagine_weights(), *nets.imagine_weights()]
+    B, T = cfg.train.batch_size, cfg.train.horizon
+    h0 = torch.randn(B, c.hidden_dim, generator=gen).tanh().cuda()
+    z0 = torch.nn.functional.one_hot(torch.randint(0, c.latent_classes, (B, c.latent_rows),
+                                                   generator=gen), c.latent_classes)
+    z0 = z0.float().reshape(B, -1).cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    eps = torch.randn(T, B, cfg.env.action_dim, generator=g, device="cuda")
+    gum = sample_gumbel((T, B, c.latent_rows, c.latent_classes), g, "cuda")
+    return weights, h0, z0, eps, gum
+
+
+def report_hold(stats: dict, label: str) -> dict:
+    """Print one per-step check of the imagine kernel (``imagine_cuda.
+    hold_steps`` or ``hold_rollout``) and fail on what it found."""
+    from dreamer_tpu_torch.ops import imagine_cuda as ic
+
+    carry = (f"; relaunched steps differing from the rollout bit for bit "
+             f"{int(stats['carry_mismatches'])}" if "carry_mismatches" in stats else "")
+    print(f"imagine: per step ({label}): {int(stats['rows'])} latent rows, max |kernel - plain| "
+          f"h' {stats['max_abs_err_h_next']:.3e} mu {stats['max_abs_err_mu']:.3e} "
+          f"sigma {stats['max_abs_err_sigma']:.3e} action {stats['max_abs_err_action']:.3e} "
+          f"(tol {ic.TOL} abs + rel); near ties (top-two score gap < {ic.NEAR_TIE}) "
+          f"{int(stats['near_ties'])}, flipped there {int(stats['flips'])}, flipped elsewhere "
+          f"{int(stats['flips_not_near_tie'])}; straight-through values max err "
+          f"{stats['max_abs_err_z_hot']:.3e}, residual share {stats['residual_share']:.3f}"
+          f"{carry}", flush=True)
+    if stats["failures"]:
+        fail(f"imagine per step ({label}): {stats['failures']}")
+    return stats
+
+
+def check_imagine(cfg, card: str) -> dict:
+    """The kernel at B 50, T 30, at the init's nearly flat prior and at a
+    peaked one: each whole-rollout launch held step by step
+    (``hold_rollout``: relaunched at T = 1 from its own states, equal bit
+    for bit, and held to the plain step), and the plain rollout's states as
+    one T = 1 launch over 1500 rows (``hold_steps``)."""
+    import torch
+
+    from dreamer_tpu_torch.ops import imagine_cuda as ic
+
+    c, a = cfg.wm, cfg.agent
+    held = []
+    for scale in (1.0, PEAKED_PRIOR):
+        weights, h0, z0, eps, gum = imagine_setup(cfg, scale)
+        T, B = eps.shape[:2]
+        out = ic.imagine_rollout(h0, z0, eps, gum, weights, c.unimix, a.min_std)
+        torch.cuda.synchronize()
+        shapes = [(B, c.hidden_dim), (B, c.latent_dim), (T, B, c.hidden_dim),
+                  (T, B, c.latent_dim), (T, B, 3), (T, B, 3), (T, B, 3)]
+        for name, o, shape in zip(ic.NAMES, out, shapes):
+            if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
+                fail(f"imagine: {name} is {tuple(o.shape)} or not finite")
+        if out[4].abs().max() > 1.0:
+            fail("imagine: action outside [-1, 1]")
+        one_hot_rows(out[3].reshape(T * B, -1), c, "imagine: z_seq")
+        ref = ic.imagine_rollout_plain(h0, z0, eps, gum, weights, c.unimix, a.min_std)
+        plain = ic.hold_steps(ref[2], ref[3], eps, gum, weights, c.unimix, a.min_std)[0]
+        prior = (f"prior output x {scale:g}, mean top prior probability "
+                 f"{plain['mean_top_prob']:.3f}")
+        agree = ic.rollout_agreement(out, ref, c.latent_rows, c.latent_classes)
+        print(f"imagine: whole rollout B={B} T={T} ({prior}), kernel vs plain: first step whose "
+              f"categories differ {agree['first_step_differs']} (-1: none), equal categories "
+              f"{agree['equal_share']:.5f}", flush=True)
+        held.append(report_hold(ic.hold_rollout(out, eps, gum, weights, c.unimix, a.min_std),
+                                f"the kernel's B={B} T={T} rollout; {prior}"))
+        held.append(report_hold(plain, f"the plain rollout's states; {prior}"))
+        if scale == 1.0:
+            timed = weights, h0, z0, eps, gum
+    worst = max(s[f"max_abs_err_{k}"] for s in held for k in ("h_next", "mu", "sigma", "action"))
+    weights, h0, z0, eps, gum = timed
+    t = {"ms": cuda_ms(lambda: ic.imagine_rollout(h0, z0, eps, gum, weights, c.unimix,
+                                                  a.min_std), 20),
+         "plain_ms": cuda_ms(lambda: ic.imagine_rollout_plain(h0, z0, eps, gum, weights,
+                                                              c.unimix, a.min_std), 5, 1),
+         "library_ms": None}
+    nbytes, flops = ic.bound_numbers(B, T, weights, ic.dims_of(weights, h0, z0, eps))
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"imagine: B={B} T={T} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+          f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.2f} GFLOP) library_ms=null; {B} blocks on {sms} SMs "
+          f"({100 * min(B, sms) / sms:.0f}% of the SMs) on {card}", flush=True)
+    return {"name": "imagine_rollout", "route": "cuda",
+            "source": "dreamer_tpu_torch/csrc/imagine.cu",
+            "replaces": "dreamer_tpu/ops/imagine_pallas.py:334", "max_abs_err": worst, **t}
+
+
+def one_hot_rows(z, c, name: str) -> None:
+    """Every latent row of z (N, rows*classes) within 1e-5 of 0 or 1 with
+    exactly one entry above 0.5: the straight-through sample's value."""
+    rows = z.reshape(z.shape[0], c.latent_rows, -1)
+    if (rows - rows.round()).abs().max() > 1e-5 or not bool(((rows > 0.5).sum(-1) == 1).all()):
+        fail(f"{name}: rows are not one-hot")
+
+
+def flagship_trainer(cfg, device=None):
+    """The flagship Trainer with a ring of AC_RING random steps."""
+    import torch
+
+    from dreamer_tpu_torch.train import Trainer
+
+    cfg = copy.deepcopy(cfg)
+    cfg.train.buffer_size = AC_RING
+    trainer = Trainer(cfg, device=device, seed=0)
+    gen = torch.Generator().manual_seed(5)
+    ring = trainer.buffer.init_state(trainer.device)
+    n = AC_RING
+    trainer.buffer.add_batch(
+        ring, torch.randint(0, 256, (1, n, *cfg.wm.obs_size, 3), dtype=torch.uint8,
+                            generator=gen).to(trainer.device),
+        (torch.rand(1, n, cfg.env.action_dim, generator=gen) * 2 - 1).to(trainer.device),
+        torch.randn(1, n, generator=gen).to(trainer.device),
+        torch.ones(1, n, device=trainer.device))
+    return trainer, ring
+
+
+def run_ac_step(cfg, card: str) -> dict:
+    """The actor-critic path: Trainer.ac_step at the flagship widths.  Returns
+    the kernels' launches over its AC_STEPS timed steps."""
+    import torch
+
+    from dreamer_tpu_torch.ops.conv_cuda import encoder_forward
+    from dreamer_tpu_torch.ops.gru_cuda import gru_cell
+    from dreamer_tpu_torch.ops.imagine_cuda import hold_rollout, imagine_rollout
+
+    trainer, ring = flagship_trainer(cfg)
+    state = trainer.init_state()
+    draw_zero_params([state.actor], torch.Generator().manual_seed(6))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    Tw = cfg.train.sequence_length // 2
+    E = cfg.train.ac_epochs
+    want = {"imagine_rollout": E, "encoder": E, "gru_cell": E * (Tw - 1)}
+    kernels = {"imagine_rollout": imagine_rollout, "encoder": encoder_forward,
+               "gru_cell": gru_cell}
+    actor0 = [p.detach().clone() for p in state.actor.parameters()]
+    critic0 = [p.detach().clone() for p in state.critic.parameters()]
+    state, _ = trainer.ac_step(state, ring, gen)  # warm-up
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for step in range(AC_STEPS):
+        before = {n: k.launches for n, k in kernels.items()}
+        start = time.perf_counter()
+        state, metrics = trainer.ac_step(state, ring, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+        got = {n: k.launches - before[n] for n, k in kernels.items()}
+        if got != want:
+            fail(f"ac_step {step}: launches {got}, expected {want}")
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+        if bad or float(metrics["ac/update_skipped"]) != 0.0:
+            fail(f"ac_step {step}: non-finite {bad} or a skipped update")
+    launches = {n: k.launches for n, k in kernels.items()}
+    for name, before in (("actor", actor0), ("critic", critic0)):
+        now = getattr(state, name).parameters()
+        if all(torch.equal(a, b) for a, b in zip(before, now)):
+            fail(f"ac_step: the {name}'s parameters did not change")
+    print(f"ac_step: {AC_STEPS} steps after 1 warm-up: "
+          + " ".join(f"{1e3 * t:.1f}" for t in times)
+          + f" ms; mean {1e3 * sum(times) / len(times):.2f} ms/ac_step "
+          f"({E} updates each); launches per step imagine {want['imagine_rollout']}, "
+          f"encoder {want['encoder']}, gru_cell {want['gru_cell']} (held); last metrics "
+          + ", ".join(f"{k.split('/')[-1]}={float(v):.4g}" for k, v in metrics.items())
+          + f" on {card}", flush=True)
+
+    # One update by hand: the target critic moves by tau toward the new
+    # critic; then a dream from the update's own warm start.
+    batch = trainer.buffer.sample(ring, cfg.train.batch_size, gen, t_out=Tw,
+                                  with_scalars=False)
+    noise = trainer.sample_ac_noise(cfg.train.batch_size, gen)
+    target0 = [p.detach().clone() for p in state.target_critic.parameters()]
+    state, _ = trainer.agent.ac_update(state, trainer.rssm, batch, noise)
+    tau = cfg.agent.target_tau
+    for t0, c1, t1 in zip(target0, state.critic.parameters(),
+                          state.target_critic.parameters()):
+        want_t = (1.0 - tau) * t0 + tau * c1.detach()
+        if (t1 - want_t).abs().max() > 1e-6 * (1 + want_t.abs().max()):
+            fail("ac_step: the target critic did not move by tau toward the critic")
+    with torch.no_grad():
+        z0, h0 = trainer.rssm.warm_start(batch[0], batch[1], noise.warm)
+        traj = trainer.rssm.imagine(state.actor, z0, h0, noise.eps, noise.gum,
+                                    cfg.agent.min_std)
+    if traj.action.abs().max() > 1.0 or not bool(torch.isfinite(traj.h).all()):
+        fail("ac_step: dream actions outside [-1, 1] or non-finite states")
+    one_hot_rows(traj.z.reshape(-1, cfg.wm.latent_dim), cfg.wm, "ac_step: dream z")
+    one_hot_rows(z0, cfg.wm, "ac_step: warm-start z")
+    # The kernel at the path's own operands (the trained actor, the warm
+    # start's states), held step by step.
+    weights = [*state.actor.imagine_weights(), *trainer.rssm.nets.imagine_weights()]
+    dream = [v.float().contiguous() for v in (h0, z0, noise.eps, noise.gum)]
+    out = imagine_rollout(*dream, weights, cfg.wm.unimix, cfg.agent.min_std)
+    report_hold(hold_rollout(out, *dream[2:], weights, cfg.wm.unimix, cfg.agent.min_std),
+                "ac_step's dream: the updated actor from the warm start's states")
+    print(f"ac_step: target critic moved by tau={tau} (held); dream actions in [-1, 1], "
+          f"latents one-hot (held); dream action mean |a| "
+          f"{float(traj.action.abs().mean()):.3f}", flush=True)
+    profile_ac_step(trainer, state, ring, card)
+    return launches
+
+
+def profile_ac_step(trainer, state, ring, card: str) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        trainer.ac_step(state, ring, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    # The phase ranges also appear as device-side annotations spanning their
+    # kernels: those are not device work and are left out of the sums.
+    per_kernel = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                  and not e.key.startswith("ac_update/")]
+    busy = sum(d for d, _, _ in per_kernel)
+    if busy == 0:
+        print("profile: ac_step: torch.profiler saw no device time: not measured", flush=True)
+        return
+    print(f"profile: ac_step: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
+          f"({100 * busy / wall_us:.1f}% busy; the profiler slows the host), "
+          f"{sum(c for _, c, _ in per_kernel)} device kernels, on {card}", flush=True)
+    # The phases of each update (torch.profiler ranges in train/agent.py):
+    # the host's time inside each range, the losses being the rest.
+    for e in sorted(prof.key_averages(), key=lambda e: e.key):
+        if e.key.startswith("ac_update/") and e.device_type == DeviceType.CPU:
+            print(f"profile: ac_step   phase {e.key}: x{e.count}, host "
+                  f"{e.cpu_time_total / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms", flush=True)
+    for dev, cnt, key in sorted(per_kernel, reverse=True)[:8]:
+        print(f"profile: ac_step   {dev / 1e3:8.3f} ms  x{cnt}  {key[:90]}", flush=True)
+
+
+def kernel_faults():
+    """Faulty kernels whose card-vs-CPU readings ``check_ac_update_vs_cpu``
+    prints beside the right kernels' reading: (name, module, the name the
+    path calls, wrap).  Each wrap turns the wrapper into one that launches
+    the kernel on wrong operands."""
+    import torch
+
+    from dreamer_tpu_torch.nets import gru, wm_nets
+    from dreamer_tpu_torch.ops import imagine_scan
+
+    return (
+        ("imagine kernel without unimix", imagine_scan, "imagine_rollout",
+         lambda f: lambda h0, z0, eps, gum, w, unimix, min_std: f(h0, z0, eps, gum, w, 0.0,
+                                                                   min_std)),
+        ("encoder kernel without its biases", wm_nets, "encoder_forward",
+         lambda f: lambda x, ws, bs: f(x, ws, [torch.zeros_like(b) for b in bs])),
+        ("GRU cell kernel without its hidden bias", gru, "gru_cell",
+         lambda f: lambda x, h, wi, wh, bi, bh: f(x, h, wi, wh, bi, torch.zeros_like(bh))),
+    )
+
+
+def check_ac_update_vs_cpu(cfg, card: str) -> None:
+    """One ac_update on the card and on the CPU (plain versions), from the
+    same seeded weights (the parameters the init leaves zero drawn), batch and
+    noise, in bf16 on both, held to AC_CARD_VS_CPU_RTOL; then, for the
+    record of what this check can see, the same on the card with each of
+    ``kernel_faults``."""
+    import torch
+
+    from dreamer_tpu_torch.core.dists import sample_gumbel
+    from dreamer_tpu_torch.train import ACNoise
+
+    c, t = cfg.wm, cfg.train
+    B, Tw = t.batch_size, t.sequence_length // 2
+    lat = (B, c.latent_rows, c.latent_classes)
+    gen = torch.Generator().manual_seed(9)
+    noise = ACNoise(sample_gumbel((Tw, *lat), gen, "cpu"),
+                    torch.randn(t.horizon, B, cfg.env.action_dim, generator=gen),
+                    sample_gumbel((t.horizon, *lat), gen, "cpu"))
+
+    def update(device):
+        trainer, ring = flagship_trainer(cfg, device)
+        state = trainer.init_state()
+        draw_zero_params([state.actor, trainer.rssm.nets], torch.Generator().manual_seed(6))
+        draws = torch.Generator().manual_seed(10)
+        hi = trainer.buffer.valid_starts(ring)
+        env_idx, starts = trainer.buffer.pick_indices(ring, *(
+            torch.randint(0, n, (B,), generator=draws).to(device)
+            for n in (trainer.buffer.num_envs, hi, hi)))
+        batch = trainer.buffer.gather(ring, env_idx, starts, Tw, with_scalars=False)
+        start = time.perf_counter()
+        _, metrics = trainer.agent.ac_update(state, trainer.rssm, batch,
+                                             ACNoise(*(n.to(device) for n in noise)))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        print(f"ac_update: one update on {device} in {time.perf_counter() - start:.2f} s",
+              flush=True)
+        return metrics
+
+    gated = ("ac/loss_actor", "ac/loss_critic", "ac/grad_norm_actor", "ac/grad_norm_critic")
+
+    def worst_rel(got, ref, label):
+        rels = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in gated}
+        for k, rel in rels.items():
+            print(f"ac_update: {label} {k}: {got[k]:.6g} cpu {ref[k]:.6g} rel {rel:.3e}",
+                  flush=True)
+        return max(rels.values())
+
+    ref = update("cpu")
+    got = update("cuda")
+    for k in ref:
+        if k not in gated:
+            print(f"ac_update: card vs cpu {k}: card {got[k]:.6g} cpu {ref[k]:.6g}", flush=True)
+    worst = worst_rel(got, ref, "card vs cpu")
+    faulty = {}
+    for name, module, attr, wrap in kernel_faults():
+        right = getattr(module, attr)
+        setattr(module, attr, wrap(right))
+        try:
+            faulty[name] = worst_rel(update("cuda"), ref, f"card with {name} vs cpu")
+        finally:
+            setattr(module, attr, right)
+    readings = ", ".join(f"{n} {v:.3e}" for n, v in faulty.items())
+    print(f"ac_update: card vs cpu, worst relative difference of the losses and gradient "
+          f"norms {worst:.3e} (tolerance {AC_CARD_VS_CPU_RTOL}, a sanity check); with a "
+          f"faulty kernel, not gated: {readings} on {card}", flush=True)
+    if worst > AC_CARD_VS_CPU_RTOL:
+        fail(f"ac_update: card vs cpu differ by {worst:.3e} rel (tolerance "
+             f"{AC_CARD_VS_CPU_RTOL})")
+
+
 def main() -> int:
     import torch
 
@@ -351,6 +740,7 @@ def main() -> int:
         from dreamer_tpu_torch.ops import cuda_build
         from dreamer_tpu_torch.ops.conv_cuda import encoder_forward
         from dreamer_tpu_torch.ops.gru_cuda import gru_cell
+        from dreamer_tpu_torch.ops.imagine_cuda import imagine_rollout
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -371,7 +761,7 @@ def main() -> int:
     cfg = DreamerConfig.from_yaml(str(CONFIG))
     if cfg.runtime.compute_dtype != "bfloat16":
         fail(f"{CONFIG.name} computes in {cfg.runtime.compute_dtype}; the kernels take bf16")
-    kernels = [check_gru(cfg, card), check_encoder(cfg, card)]
+    kernels = [check_gru(cfg, card), check_encoder(cfg, card), check_imagine(cfg, card)]
 
     check_policy_vs_cpu(cfg)
     from dreamer_tpu_torch.train import Policy
@@ -379,17 +769,29 @@ def main() -> int:
     policy = Policy(cfg, seed=0)
     gru_cell.launches = 0
     encoder_forward.launches = 0
+    imagine_rollout.launches = 0
     run_policy(policy, cfg, card)
-    launches = {"gru_cell": gru_cell.launches, "encoder": encoder_forward.launches}
+    on_policy = {"gru_cell": gru_cell.launches, "encoder": encoder_forward.launches,
+                 "imagine_rollout": imagine_rollout.launches}
+    for name in ("gru_cell", "encoder"):
+        if on_policy[name] == 0:
+            fail(f"the policy path never launched {name}")
     profile_policy(policy, cfg, card)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] == 0:
-            fail(f"the policy path never launched {k['name']}")
 
-    # Times at N = 64; the N = 1 times are on the "kernels:" lines above.
+    on_ac = run_ac_step(cfg, card)
+    for k in kernels:
+        if on_ac[k["name"]] == 0:
+            fail(f"the ac_step path never launched {k['name']}")
+        # The line's count is this slice's main path, Trainer.ac_step; both
+        # paths' counts are kept beside it.
+        k["launches"] = on_ac[k["name"]]
+        k["launches_by_path"] = {"policy": on_policy[k["name"]], "ac_step": on_ac[k["name"]]}
+    check_ac_update_vs_cpu(cfg, card)
+
+    # GRU and encoder times at N = 64 (the N = 1 times are on the "kernels:"
+    # lines above); the imagination's at the flagship B = 50, T = 30.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ version that the CPU runs.
 
 Ported so far: the serving path, the policy programs of
 ``dreamer_tpu/train/step.py`` (``train.step.Policy``), with the GRU-cell and
-fused conv-encoder kernels; ``bridge`` moves parameters from the JAX trees.
+fused conv-encoder kernels; the actor-critic half of the learner
+(``train.step.Trainer.ac_step``: replay ring, warm start, imagination through
+the whole-rollout kernel, losses and AdamW updates); ``bridge`` moves
+parameters and training states from the JAX trees.
 """
 
 __version__ = "0.1.0"

@@ -9,25 +9,26 @@ fused ``(in, 3H)`` / ``(H, 3H)`` kernels, gate order r, z, n.  After a load the
 kernels' own layouts (the transposed GRU gate rows, the HWIO bf16 encoder
 weights) are made once, by ``WMNets.prepare_kernels``.
 
-Covered: the ``wm`` subtrees of the serving path and the whole ``actor`` tree.
-The ``wm`` subtrees named in ``DEFERRED_WM_KEYS`` come with the training slice
+Covered: the ``wm`` subtrees but the decoder's, the ``actor`` and ``critic``
+trees, and a whole actor-critic training state (``load_ac_state``).  The
+decoder subtrees named in ``DEFERRED_WM_KEYS`` come with the world-model slice
 and are skipped; any other key raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from dreamer_tpu_torch.nets.actor_critic import Actor
-from dreamer_tpu_torch.nets.mlp import Dense, LayerNorm
+from dreamer_tpu_torch.nets.actor_critic import Actor, Critic
+from dreamer_tpu_torch.nets.mlp import MLP, Dense, LayerNorm
 from dreamer_tpu_torch.nets.wm_nets import WMNets
 
-DEFERRED_WM_KEYS = ("dyn_head", "reward_head", "cont_head", "upscaler_1", "upscaler_ln",
-                    "upscaler_2", "dec_conv0", "dec_conv1", "dec_conv2", "dec_conv3")
+DEFERRED_WM_KEYS = ("upscaler_1", "upscaler_ln", "upscaler_2", "dec_conv0", "dec_conv1",
+                    "dec_conv2", "dec_conv3")
 
 Tree = Dict[str, object]
 # (flax path, parameter, flax leaf -> torch layout, torch -> flax layout)
@@ -65,12 +66,22 @@ def _wm_entries(nets: WMNets) -> Iterator[_Entry]:
     g = nets.gru
     for name in ("kernel_i", "kernel_h", "bias_i", "bias_h"):
         yield ("gru", name), getattr(g, name), _same, _same
+    for name in ("dyn_head", "reward_head", "cont_head"):
+        yield from _mlp((name,), getattr(nets, name))
+
+
+def _mlp(prefix, m: MLP) -> Iterator[_Entry]:
+    yield from _trunk(prefix, m.denses, m.norms)
 
 
 def _actor_entries(actor: Actor) -> Iterator[_Entry]:
     yield from _trunk((), actor.denses, actor.norms)
     yield from _dense(("mu_head",), actor.mu_head)
     yield from _dense(("log_sig_head",), actor.log_sig_head)
+
+
+def _critic_entries(critic: Critic) -> Iterator[_Entry]:
+    yield from _mlp((), critic)
 
 
 def _leaves(tree: Tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -128,3 +139,77 @@ def export_wm(nets: WMNets) -> Tree:
 
 def export_actor(actor: Actor) -> Tree:
     return _export(_actor_entries(actor))
+
+
+def load_critic(critic: Critic, tree: Tree) -> None:
+    _load(_critic_entries(critic), tree)
+
+
+def export_critic(critic: Critic) -> Tree:
+    return _export(_critic_entries(critic))
+
+
+# --------------------------------------------------------------------------- #
+# A whole actor-critic training state
+# --------------------------------------------------------------------------- #
+
+
+def _adam_of(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax
+    ``clip_by_global_norm`` -> ``adamw`` chain state, found by its fields so
+    that the optax classes need not be imported."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_of(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _moment_entries(entries, module: nn.Module, moments) -> List[_Entry]:
+    """``entries`` with each parameter replaced by its optimizer moment;
+    ``moments`` are in ``module.parameters()`` order."""
+    slot = {id(p): i for i, p in enumerate(module.parameters())}
+    return [(path, moments[slot[id(p)]], a, b) for path, p, a, b in entries]
+
+
+def _optimizers(state):
+    """(port AdamState, module, its bridge entries) of both optimizers."""
+    return ((state.actor_opt, state.actor, list(_actor_entries(state.actor))),
+            (state.critic_opt, state.critic, list(_critic_entries(state.critic))))
+
+
+def load_ac_state(state, jax_state) -> None:
+    """Copy a JAX ``ACTrainState`` (``dreamer_tpu/train/state.py:20-26``),
+    given with numpy leaves (``jax.tree.map(np.asarray, ...)``), into the
+    port's ``train.state.ACTrainState``: the actor, critic and target-critic
+    trees, the AdamW moments and step count of both optimizers, and
+    ``s_scale``."""
+    load_actor(state.actor, jax_state.actor_params)
+    load_critic(state.critic, jax_state.critic_params)
+    load_critic(state.target_critic, jax_state.target_critic_params)
+    for (opt, module, entries), jax_opt in zip(_optimizers(state),
+                                               (jax_state.actor_opt, jax_state.critic_opt)):
+        adam = _adam_of(jax_opt)
+        if adam is None:
+            raise KeyError("no (count, mu, nu) Adam state in the optimizer state")
+        _load(_moment_entries(entries, module, opt.mu), adam.mu)
+        _load(_moment_entries(entries, module, opt.nu), adam.nu)
+        opt.count.fill_(int(np.asarray(adam.count)))
+    state.s_scale.fill_(float(np.asarray(jax_state.s_scale)))
+
+
+def export_ac_state(state) -> Dict[str, object]:
+    """The port's ``ACTrainState`` as numpy in the JAX layout:
+    ``{"actor_params", "critic_params", "target_critic_params": trees,
+    "actor_opt", "critic_opt": {"count", "mu", "nu"}, "s_scale"}``."""
+    opts = [{"count": int(opt.count),
+             "mu": _export(_moment_entries(entries, module, opt.mu)),
+             "nu": _export(_moment_entries(entries, module, opt.nu))}
+            for opt, module, entries in _optimizers(state)]
+    return {"actor_params": export_actor(state.actor),
+            "critic_params": export_critic(state.critic),
+            "target_critic_params": export_critic(state.target_critic),
+            "actor_opt": opts[0], "critic_opt": opts[1], "s_scale": float(state.s_scale)}

@@ -1,4 +1,4 @@
-"""Distribution primitives of the serving path (``dreamer_tpu/core/dists.py``).
+"""Distribution primitives (``dreamer_tpu/core/dists.py``).
 
 Every sampler takes its noise as a tensor instead of a key: gumbel noise for
 the categorical latents, standard-normal ``eps`` for the action.  The serving
@@ -9,6 +9,7 @@ JAX draws from its keys, which reproduces JAX's samples exactly, because
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 _LOG_SIG_MIN = -5.0
 _LOG_SIG_MAX = 2.0
 _SIG_FLOOR = 1e-3
+_ACTION_EPS = 1e-6
 
 
 def unimix_probs(logits: torch.Tensor, unimix: float = 0.01) -> torch.Tensor:
@@ -48,3 +50,23 @@ def actor_mu_sigma(mu_raw: torch.Tensor, log_sig_raw: torch.Tensor,
     """(mu, softplus(clip(log_sig, -5, 2)) + min_std) (``dists.py:68``)."""
     log_sig = torch.clamp(log_sig_raw, _LOG_SIG_MIN, _LOG_SIG_MAX)
     return mu_raw, F.softplus(log_sig) + min_std
+
+
+def tanh_normal_logprob(action: torch.Tensor, mu: torch.Tensor,
+                        sigma: torch.Tensor) -> torch.Tensor:
+    """log pi(action) of the tanh-squashed Normal, summed over the action
+    dim, with the action clamped to +-(1 - 1e-6) and torch's stable
+    log|det J| = 2 (log 2 - x - softplus(-2x)), x = atanh(action)
+    (``dists.py:97-113``)."""
+    a = torch.clamp(action, -1.0 + _ACTION_EPS, 1.0 - _ACTION_EPS)
+    x = torch.atanh(a)
+    base = -0.5 * torch.square((x - mu) / sigma) - torch.log(sigma) \
+        - 0.5 * math.log(2.0 * math.pi)
+    log_det = 2.0 * (math.log(2.0) - x - F.softplus(-2.0 * x))
+    return torch.sum(base - log_det, dim=-1)
+
+
+def normal_entropy(sigma: torch.Tensor) -> torch.Tensor:
+    """Analytic entropy of the unsquashed diagonal Normal, summed over the
+    action dim (``dists.py:116-129``)."""
+    return torch.sum(0.5 * math.log(2.0 * math.pi * math.e) + torch.log(sigma), dim=-1)

@@ -1,4 +1,5 @@
-"""The world-model networks of the serving path (``dreamer_tpu/nets/wm_nets.py``).
+"""The world-model networks (``dreamer_tpu/nets/wm_nets.py``), without the
+decoder yet.
 
 - conv encoder ``enc_conv0..3``: 4x [Conv(k4, s2, p1) + SiLU], channels
   3 -> f1 -> f2 -> 2*f2 -> 4*f2; weights OIHW.  It runs as one fused kernel
@@ -8,8 +9,11 @@
 - posterior head: Dense(enc_hidden)+LN+SiLU -> Dense(rows*classes) on
   [features ‖ h].
 - GRU: h' = GRU([flat(z) ‖ a], h).
+- dynamics (prior) head: MLP h -> rows*classes logits.
+- reward head: MLP [h ‖ flat(z)] -> reward_buckets twohot logits.
+- continue head: MLP [h ‖ flat(z)] -> 1 logit.
 
-The dynamics, reward, continue and decoder heads come with the training slice.
+The decoder comes with the world-model slice.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from dreamer_tpu_torch.nets.gru import GRUCell
 from dreamer_tpu_torch.nets.layout import KernelLayout
 from dreamer_tpu_torch.nets.mlp import MLP, lecun_normal_
 from dreamer_tpu_torch.ops.conv_cuda import encoder_forward, encoder_kernel_layout
+from dreamer_tpu_torch.ops.imagine_cuda import layer_operands
 
 
 class EncoderConv(nn.Module):
@@ -52,19 +57,37 @@ class WMNets(nn.Module):
         self.posterior_head = MLP(self.feat_dim + cfg.hidden_dim, [cfg.encoder_hidden],
                                   cfg.latent_dim, dtype, generator)
         self.gru = GRUCell(cfg.latent_dim + action_dim, cfg.hidden_dim, dtype, generator)
+        H, Z = cfg.hidden_dim, cfg.latent_dim
+        self.dyn_head = MLP(H, [cfg.dyn_hidden_1, cfg.dyn_hidden_2], Z, dtype, generator)
+        self.reward_head = MLP(H + Z, [cfg.rew_hidden_1, cfg.rew_hidden_2],
+                               cfg.reward_buckets, dtype, generator)
+        self.cont_head = MLP(H + Z, [cfg.cont_hidden_1, cfg.cont_hidden_2], 1, dtype,
+                             generator)
         self._enc_layout = KernelLayout(lambda *p: encoder_kernel_layout(
             p[0::2], p[1::2], self.dtype))
+        self._dyn_layout = KernelLayout(lambda *p: layer_operands(p, self.dtype))
 
     def encoder_weights(self):
         """The encoder kernel's operands (HWIO weights, float32 biases), made
         once per weight load."""
         return self._enc_layout.get(*[t for c in self.enc_convs for t in (c.weight, c.bias)])
 
+    def imagine_weights(self):
+        """The world model's operands of the imagine kernel: the GRU cell's
+        kernel layout, then the dynamics head's Dense rows and LayerNorms
+        (``ops.imagine_cuda.layer_operands``).  Made once per weight load."""
+        d = self.dyn_head
+        dyn = self._dyn_layout.get(
+            d.denses[0].weight, d.denses[0].bias, d.norms[0].scale, d.norms[0].bias,
+            d.denses[1].weight, d.denses[1].bias, d.norms[1].scale, d.norms[1].bias,
+            d.denses[2].weight, d.denses[2].bias)
+        return (*self.gru.kernel_weights(), *dyn)
+
     def prepare_kernels(self) -> None:
         """Make the kernel-layout weight copies now (after a load) rather than
         on the first call."""
         self.encoder_weights()
-        self.gru.kernel_weights()
+        self.imagine_weights()
 
     def encode_obs(self, obs_u8: torch.Tensor) -> torch.Tensor:
         """uint8 frames (..., H, W, 3) -> flat features (..., F) in the
@@ -88,3 +111,14 @@ class WMNets(nn.Module):
         lead = x.shape[:-1]
         out = self.gru(x.reshape(-1, x.shape[-1]), h.reshape(-1, h.shape[-1]))
         return out.reshape(lead + (self.cfg.hidden_dim,))
+
+    def prior_logits(self, h: torch.Tensor) -> torch.Tensor:
+        logits = self.dyn_head(h.to(self.dtype))
+        return logits.reshape(logits.shape[:-1] + (self.cfg.latent_rows,
+                                                   self.cfg.latent_classes))
+
+    def reward_logits(self, h: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
+        return self.reward_head(torch.cat([h, z_flat], dim=-1).to(self.dtype))
+
+    def cont_logit(self, h: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
+        return self.cont_head(torch.cat([h, z_flat], dim=-1).to(self.dtype))

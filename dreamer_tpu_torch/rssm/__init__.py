@@ -1,3 +1,3 @@
-from dreamer_tpu_torch.rssm.rssm import RSSM
+from dreamer_tpu_torch.rssm.rssm import RSSM, ImaginedTrajectory
 
-__all__ = ["RSSM"]
+__all__ = ["RSSM", "ImaginedTrajectory"]

@@ -1,27 +1,30 @@
-"""The policy programs of ``Trainer`` (``dreamer_tpu/train/step.py:194-247``):
-the per-env-step act/observe calls of rollout and eval, batched over N envs.
+"""The programs of ``dreamer_tpu/train/step.py``: ``Policy``, the per-env-step
+act/observe calls of rollout and eval, batched over N envs (``:194-247``);
+and ``Trainer``, the learner, of which the actor-critic half ``ac_step``
+(``:151-178``) is ported so far.
 
-``Policy`` holds the world-model nets (through ``RSSM``) and the actor.  Its
-noise is an argument: ``sample_noise`` draws it from the caller's
-``torch.Generator`` on the serving path, and tests pass the noise JAX draws.
-The learner methods of ``Trainer`` (``wm_step``, ``ac_step``,
-``train_iteration``) join this class in the training slice.
-
-On a CUDA device the encoder and the GRU cell run as the hand-written kernels
-of ``dreamer_tpu_torch.ops``; those take bfloat16, so the card needs
+Both hold the world-model nets (through ``RSSM``) and draw their noise from
+the caller's ``torch.Generator`` (``sample_noise``, ``sample_ac_noise``);
+tests pass the noise JAX draws instead.  On a CUDA device the encoder, the
+GRU cell and the imagination run as the hand-written kernels of
+``dreamer_tpu_torch.ops``; those take bfloat16, so the card needs
 ``runtime.compute_dtype: bfloat16``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import copy
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import sample_gumbel
-from dreamer_tpu_torch.nets.actor_critic import Actor
+from dreamer_tpu_torch.nets.actor_critic import Actor, Critic
+from dreamer_tpu_torch.replay.buffer import ReplayBuffer, ReplayState
 from dreamer_tpu_torch.rssm.rssm import RSSM
+from dreamer_tpu_torch.train.agent import ACNoise, AgentTrainer
+from dreamer_tpu_torch.train.state import ACTrainState, AdamState
 
 Tensor = torch.Tensor
 
@@ -113,3 +116,72 @@ class Policy:
         z_next = (1.0 - d) * z_step + d * z_reset
         action = self.policy_act(h_next, z_next, noise.eps, deterministic)
         return h_next, z_next, action
+
+
+class Trainer:
+    """The learner.  The world model (``self.rssm``) is held fixed in this
+    slice: its update comes with the next one."""
+
+    def __init__(self, cfg: DreamerConfig, device=None, seed: int = 0):
+        """Build the world-model nets at ``cfg``'s widths with weights drawn
+        from ``seed`` (on the CPU) and move them to ``device``."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.runtime.compute_dtype)
+        self.seed = seed
+        gen = torch.Generator().manual_seed(seed)
+        self.rssm = RSSM(cfg.wm, cfg.env.action_dim, self.dtype, gen)
+        self.rssm.nets.requires_grad_(False).to(self.device)
+        self.rssm.nets.prepare_kernels()
+        self.agent = AgentTrainer(cfg)
+        self.buffer = ReplayBuffer(cfg.train.buffer_size, cfg.train.sequence_length,
+                                   cfg.env.action_dim, cfg.wm.obs_size,
+                                   num_envs=cfg.env.num_envs,
+                                   store_firsts=cfg.env.next_step_autoreset)
+
+    def init_state(self) -> ACTrainState:
+        """The actor-critic state: actor and critic drawn from the trainer's
+        seed + 1 (on the CPU), the target critic a copy of the critic, fresh
+        AdamW states and ``s_scale = 1``."""
+        cfg, a = self.cfg, self.cfg.agent
+        gen = torch.Generator().manual_seed(self.seed + 1)
+        in_dim = cfg.wm.hidden_dim + cfg.wm.latent_dim
+        actor = Actor(in_dim, cfg.env.action_dim, a.actor_hidden_1, a.actor_hidden_2,
+                      a.min_std, self.dtype, gen).to(self.device)
+        critic = Critic(in_dim, a.critic_buckets, a.critic_hidden_1, a.critic_hidden_2,
+                        self.dtype, gen).to(self.device)
+        target = copy.deepcopy(critic).requires_grad_(False)
+        return ACTrainState(actor=actor, critic=critic, target_critic=target,
+                            actor_opt=AdamState.zeros_like(actor),
+                            critic_opt=AdamState.zeros_like(critic),
+                            s_scale=torch.ones((), device=self.device))
+
+    def sample_ac_noise(self, batch_size: int, generator: torch.Generator) -> ACNoise:
+        """One update's noise on the trainer's device."""
+        c, t = self.cfg.wm, self.cfg.train
+        lat = (batch_size, c.latent_rows, c.latent_classes)
+        return ACNoise(
+            warm=sample_gumbel((t.sequence_length // 2, *lat), generator, self.device),
+            eps=torch.randn(t.horizon, batch_size, self.cfg.env.action_dim,
+                            generator=generator, device=self.device),
+            gum=sample_gumbel((t.horizon, *lat), generator, self.device))
+
+    def ac_step(self, state: ACTrainState, ring: ReplayState, generator: torch.Generator,
+                nu: Optional[torch.Tensor] = None
+                ) -> Tuple[ACTrainState, Dict[str, torch.Tensor]]:
+        """``train.ac_epochs`` actor-critic updates, each on a fresh sample of
+        the first ``sequence_length // 2`` steps of B windows (the warm
+        start's), with the metrics averaged over the epochs as ``_ac_step``
+        does.  The indices and the noise come from ``generator``, which must
+        live on the trainer's device."""
+        cfg = self.cfg
+        with_scalars = cfg.wm.reset_on_episode_start or cfg.env.next_step_autoreset
+        per_epoch = []
+        for _ in range(cfg.train.ac_epochs):
+            batch = self.buffer.sample(ring, cfg.train.batch_size, generator,
+                                       t_out=cfg.train.sequence_length // 2,
+                                       with_scalars=with_scalars)
+            noise = self.sample_ac_noise(cfg.train.batch_size, generator)
+            state, metrics = self.agent.ac_update(state, self.rssm, batch, noise, nu)
+            per_epoch.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_epoch]).mean() for k in per_epoch[0]}

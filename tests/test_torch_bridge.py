@@ -1,6 +1,9 @@
-"""The parameter bridge: exact round trips, the keys it refuses, and the
-committed flagship policy (checkpoints/carracer_r3/agent_best) restored with
-the JAX package's own checkpoint code and served by both packages.
+"""The parameter bridge: exact round trips (the world-model subtrees, actor,
+critic, and a whole actor-critic training state after a JAX update), the keys
+it refuses, and the committed flagship export
+(checkpoints/carracer_r3/agent_best) restored with the JAX package's own
+checkpoint code: its critic, target critic and world-model heads round-trip,
+and its policy is served by both packages.
 
 The flagship comparison runs in float32 (the export's own dtype) so that the
 sampled latents match exactly; deterministic actions then agree to 1e-4 abs
@@ -15,11 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import configs, f32, jax_params, port_nets, t
+from _torch_parity import (configs, f32, jax_ac_world, jax_params, port_ac_state, port_nets,
+                           small_configs, t)
 from dreamer_tpu_torch import bridge
+from dreamer_tpu_torch.nets import Critic
 from dreamer_tpu_torch.train import Policy, PolicyNoise
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORTED_WM_KEYS = {"enc_conv0", "enc_conv1", "enc_conv2", "enc_conv3", "posterior_head", "gru",
+                  "dyn_head", "reward_head", "cont_head"}
 SMOKE = os.path.join(ROOT, "configs", "fake_smoke.yaml")
 FLAGSHIP = os.path.join(ROOT, "configs", "car_racer.yaml")
 AGENT_BEST = os.path.join(ROOT, "checkpoints", "carracer_r3", "agent_best")
@@ -45,8 +52,7 @@ def test_round_trip_is_exact(trees):
     nets, port_actor = port_nets(cfg, wm, actor)
     wm_back, actor_back = bridge.export_wm(nets), bridge.export_actor(port_actor)
     ported = {k: v for k, v in wm.items() if k not in bridge.DEFERRED_WM_KEYS}
-    assert set(wm_back) == set(ported) == {"enc_conv0", "enc_conv1", "enc_conv2",
-                                           "enc_conv3", "posterior_head", "gru"}
+    assert set(wm_back) == set(ported) == PORTED_WM_KEYS
     for expect, got in ((ported, wm_back), (actor, actor_back)):
         want = dict(_leaves(expect))
         have = dict(_leaves(got))
@@ -85,8 +91,7 @@ def test_kernel_layouts_are_made_at_load(trees):
 
 def test_deferred_keys_are_skipped_and_unknown_keys_raise(trees):
     cfg, wm, actor = trees
-    assert set(bridge.DEFERRED_WM_KEYS) == set(wm) - {
-        "enc_conv0", "enc_conv1", "enc_conv2", "enc_conv3", "posterior_head", "gru"}
+    assert set(bridge.DEFERRED_WM_KEYS) == set(wm) - PORTED_WM_KEYS
     nets, port_actor = port_nets(cfg, wm, actor)
     bad = copy.deepcopy(wm)
     bad["mystery_head"] = {"kernel": np.zeros((2, 2), np.float32)}
@@ -106,12 +111,12 @@ def test_deferred_keys_are_skipped_and_unknown_keys_raise(trees):
         bridge.load_wm(nets, bad)
 
 
-def test_flagship_agent_best_serves_the_same_actions(tmp_path):
-    """Restore the committed flagship export through the JAX package's own
-    checkpoint code, bridge it, and serve a few frames with both packages."""
+@pytest.fixture(scope="module")
+def agent_best(tmp_path_factory):
+    """The committed flagship export restored through the JAX package's own
+    checkpoint code, as float32 numpy trees."""
     from dreamer_tpu.rssm import RSSM as JaxRSSM
     from dreamer_tpu.train.agent import AgentTrainer
-    from dreamer_tpu.train.step import Trainer
     from dreamer_tpu.utils.checkpoint import CheckpointManager
 
     jcfg, cfg = configs(FLAGSHIP, "float32")
@@ -123,9 +128,73 @@ def test_flagship_agent_best_serves_the_same_actions(tmp_path):
     zeros = lambda tree: jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), tree)  # noqa: E731
     target = {"wm": zeros(wm_shape), "actor": zeros(actor_shape),
               "critic": zeros(critic_shape), "target_critic": zeros(critic_shape)}
-    tree = CheckpointManager(str(tmp_path)).restore_numpy(AGENT_BEST, target)
-    wm = jax.tree.map(lambda a: np.asarray(a, np.float32), tree["wm"])
-    actor = jax.tree.map(lambda a: np.asarray(a, np.float32), tree["actor"])
+    tree = CheckpointManager(str(tmp_path_factory.mktemp("ckpt"))).restore_numpy(
+        AGENT_BEST, target)
+    return jcfg, cfg, jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def test_flagship_agent_best_critics_and_heads_round_trip(agent_best):
+    _, cfg, tree = agent_best
+    a = cfg.agent
+    in_dim = cfg.wm.hidden_dim + cfg.wm.latent_dim
+    for name in ("critic", "target_critic"):
+        critic = Critic(in_dim, a.critic_buckets, a.critic_hidden_1, a.critic_hidden_2)
+        bridge.load_critic(critic, tree[name])
+        assert dict(_leaves(bridge.export_critic(critic))).keys() == dict(
+            _leaves(tree[name])).keys()
+        for path, v in _leaves(bridge.export_critic(critic)):
+            np.testing.assert_array_equal(v, dict(_leaves(tree[name]))[path])
+    assert tree["critic"]["Dense_2"]["kernel"].shape == (200, 255)
+    policy = Policy(cfg, device="cpu")
+    bridge.load_wm(policy.rssm.nets, tree["wm"])
+    back = bridge.export_wm(policy.rssm.nets)
+    for head in ("dyn_head", "reward_head", "cont_head"):
+        want = dict(_leaves(tree["wm"][head]))
+        assert dict(_leaves(back[head])).keys() == want.keys()
+        for path, v in _leaves(back[head]):
+            np.testing.assert_array_equal(v, want[path], err_msg=f"{head}/{path}")
+    assert float(np.abs(tree["wm"]["dyn_head"]["Dense_2"]["kernel"]).max()) > 0
+
+
+def test_ac_state_round_trips_after_a_jax_update():
+    """A whole JAX ACTrainState, after one update (so that both AdamW states
+    and the return scale have moved), carried into the port and back."""
+    jcfg, cfg = small_configs()
+    wm, jstate, jupdate = jax_ac_world(jcfg, seed=7)
+    rng = np.random.default_rng(7)
+    B, Tw = jcfg.train.batch_size, jcfg.train.sequence_length // 2
+    batch = (jnp.asarray(rng.integers(0, 256, (B, Tw, *jcfg.wm.obs_size, 3), dtype=np.uint8)),
+             jnp.asarray(rng.uniform(-1, 1, (B, Tw, 3)).astype(np.float32)))
+    jstate, metrics = jupdate(jstate, wm, batch, jax.random.PRNGKey(1))
+    assert float(metrics["ac/update_skipped"]) == 0.0
+    j = jax.tree.map(np.asarray, jstate)
+    got = bridge.export_ac_state(port_ac_state(cfg, jstate))
+    for name in ("actor_params", "critic_params", "target_critic_params"):
+        want = dict(_leaves(getattr(j, name)))
+        have = dict(_leaves(got[name]))
+        assert have.keys() == want.keys()
+        for path, v in want.items():
+            np.testing.assert_array_equal(have[path], v, err_msg=f"{name}/{path}")
+    for name in ("actor_opt", "critic_opt"):
+        adam = bridge._adam_of(getattr(j, name))
+        assert got[name]["count"] == int(adam.count) == 1
+        for moment in ("mu", "nu"):
+            want = dict(_leaves(getattr(adam, moment)))
+            have = dict(_leaves(got[name][moment]))
+            assert have.keys() == want.keys()
+            assert any(v.any() for v in want.values())
+            for path, v in want.items():
+                np.testing.assert_array_equal(have[path], v, err_msg=f"{name}/{moment}/{path}")
+    assert got["s_scale"] == float(j.s_scale) != 1.3
+
+
+def test_flagship_agent_best_serves_the_same_actions(agent_best):
+    """Bridge the committed flagship export and serve a few frames with both
+    packages."""
+    from dreamer_tpu.train.step import Trainer
+
+    jcfg, cfg, tree = agent_best
+    wm, actor = tree["wm"], tree["actor"]
     assert wm["gru"]["kernel_i"].shape == (32 * 32 + 3, 3 * 600)
     assert float(np.abs(actor["mu_head"]["kernel"]).max()) > 0  # trained, not the zero init
 

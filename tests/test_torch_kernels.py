@@ -5,22 +5,33 @@ other device launches the kernel or raises, and the kernels' weight layouts.
 The tests marked ``cuda`` build and run the CUDA kernels; they skip without a
 card.  On the card: ``python -m pytest tests/test_torch_kernels.py -m cuda``.
 Tolerances there are each wrapper's ``tolerance`` (``ops.gru_cuda``: 2e-2
-abs/rel; ``ops.conv_cuda``: 2**-6 of the largest feature), the same that
+abs/rel; ``ops.conv_cuda``: 2**-6 of the largest feature) or check
+(``ops.imagine_cuda.compare_step``: 2e-2 abs/rel on h', mu, sigma and the
+action, the same categories outside near ties; ``hold_rollout``: a whole
+rollout reproduced bit for bit by its steps relaunched), the same that
 chip_smoke.py holds the kernels to; each module says why."""
 
+import os
 import re
 
 import pytest
 import torch
 
 from dreamer_tpu_torch.config import DreamerConfig
+from dreamer_tpu_torch.nets.actor_critic import Actor
 from dreamer_tpu_torch.nets.gru import GRUCell
 from dreamer_tpu_torch.nets.layout import KernelLayout
 from dreamer_tpu_torch.nets.wm_nets import WMNets
-from dreamer_tpu_torch.ops import conv_cuda, cuda_build, gru_cuda
+from dreamer_tpu_torch.ops import conv_cuda, cuda_build, gru_cuda, imagine_cuda
 from dreamer_tpu_torch.ops.conv_cuda import (encoder_forward, encoder_forward_plain,
                                              encoder_kernel_layout)
 from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_cell_plain, gru_kernel_layout
+from dreamer_tpu_torch.ops.imagine_cuda import (dense_rows, imagine_rollout,
+                                                imagine_rollout_plain, imagine_step,
+                                                layer_operands)
+
+FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "car_racer.yaml")
 
 
 def gru_operands(n=5, i=13, h=11, dtype=torch.float32, seed=0):
@@ -42,11 +53,39 @@ def encoder_operands(n=3, size=32, filters=(4, 8), dtype=torch.float32, seed=0):
     return obs, *nets.encoder_weights()
 
 
+def imagine_operands(shape, n=4, steps=6, dtype=torch.bfloat16, seed=0):
+    """(h0, z0, eps, gum, weights, rows, classes, unimix, min_std) with every
+    parameter that the init leaves zero drawn ~ N(0, 0.1): at the SMALL
+    widths of tests/test_imagine_pallas.py (8 x 16 latents) or the flagship's
+    (configs/car_racer.yaml)."""
+    g = torch.Generator().manual_seed(seed)
+    cfg = DreamerConfig.from_yaml(FLAGSHIP)
+    c, hidden = cfg.wm, 200
+    if shape == "small":
+        c.hidden_dim, c.latent_rows, c.latent_classes = 64, 8, 16
+        c.dyn_hidden_1 = c.dyn_hidden_2 = hidden = 24
+    nets = WMNets(c, 3, dtype, g)
+    actor = Actor(c.hidden_dim + c.latent_dim, 3, hidden, hidden, cfg.agent.min_std, dtype, g)
+    with torch.no_grad():
+        for m in (nets, actor):
+            for p in m.parameters():
+                if not p.any():
+                    p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    weights = [*actor.imagine_weights(), *nets.imagine_weights()]
+    h0 = torch.randn(n, c.hidden_dim, generator=g).tanh()
+    z0 = torch.nn.functional.one_hot(torch.randint(0, c.latent_classes, (n, c.latent_rows),
+                                                   generator=g), c.latent_classes)
+    eps = torch.randn(steps, n, 3, generator=g)
+    u = torch.rand(steps, n, c.latent_rows, c.latent_classes, generator=g).clamp_(min=1e-30)
+    return (h0, z0.float().reshape(n, -1), eps, -torch.log(-torch.log(u)), weights,
+            c.latent_rows, c.latent_classes, c.unimix, cfg.agent.min_std)
+
+
 @pytest.fixture
 def no_launch_counted():
-    before = (gru_cell.launches, encoder_forward.launches)
+    before = (gru_cell.launches, encoder_forward.launches, imagine_rollout.launches)
     yield
-    assert (gru_cell.launches, encoder_forward.launches) == before
+    assert (gru_cell.launches, encoder_forward.launches, imagine_rollout.launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -75,6 +114,56 @@ def test_gru_kernel_layout_pads_and_transposes():
     assert torch.equal(wi_t[:, :13], wi.t().to(torch.bfloat16))
     assert not wi_t[:, 13:].any() and not wh_t[:, 11:].any()
     assert torch.equal(bi2, bi.to(torch.bfloat16).float())  # rounded as the flax cell does
+
+
+def test_imagine_on_cpu_is_the_plain_version(no_launch_counted):
+    h0, z0, eps, gum, w, rows, classes, unimix, min_std = imagine_operands("small")
+    out = imagine_rollout(h0, z0, eps, gum, w, unimix, min_std)
+    ref = imagine_rollout_plain(h0, z0, eps, gum, w, unimix, min_std)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert [tuple(o.shape) for o in out] == [(4, 64), (4, 128), (6, 4, 64), (6, 4, 128),
+                                             (6, 4, 3), (6, 4, 3), (6, 4, 3)]
+
+
+def _rollout_row_by_row(h0, z0, eps, gum, w, unimix, min_std):
+    """``imagine_rollout_plain`` one row at a time: like the kernel (one block
+    per row), its numbers do not depend on how many rows share the call."""
+    outs = [imagine_rollout_plain(h0[i:i + 1], z0[i:i + 1], eps[:, i:i + 1], gum[:, i:i + 1],
+                                  w, unimix, min_std) for i in range(h0.shape[0])]
+    return tuple(torch.cat([o[k] for o in outs], dim=0 if k < 2 else 1) for k in range(7))
+
+
+@pytest.mark.parametrize("fault", ["none", "h_seq", "z_fin", "mu_seq"])
+def test_hold_rollout_fails_a_rollout_its_own_steps_do_not_reproduce(monkeypatch, fault):
+    """``hold_rollout`` relaunches every step from the rollout's own states;
+    one f32 step off in a carried state or an output (a faulty carry across
+    the kernel's time loop) fails it."""
+    h0, z0, eps, gum, w, rows, classes, unimix, min_std = imagine_operands("small")
+    monkeypatch.setattr(imagine_cuda, "imagine_rollout", _rollout_row_by_row)
+    out = list(_rollout_row_by_row(h0, z0, eps, gum, w, unimix, min_std))
+    if fault == "h_seq":  # the state carried into step 3 of row 1
+        out[2] = out[2].clone()
+        out[2][3, 1, 0] = torch.nextafter(out[2][3, 1, 0], torch.tensor(2.0))
+    elif fault == "z_fin":  # the last step's straight-through residual dropped
+        assert not torch.equal(out[1], out[1].round())
+        out[1] = out[1].round()
+    elif fault == "mu_seq":
+        out[5] = out[5].clone()
+        out[5][2, 0, 1] = torch.nextafter(out[5][2, 0, 1], torch.tensor(2.0))
+    stats = imagine_cuda.hold_rollout(out, eps, gum, w, unimix, min_std)
+    assert (stats["carry_mismatches"] == 0) == (fault == "none"), stats
+    assert (stats["failures"] == []) == (fault == "none"), stats
+
+
+def test_imagine_kernel_layout_pads_rows_and_rounds_dense_biases():
+    w, b = torch.randn(5, 13), torch.randn(5)
+    s, lb = torch.randn(5), torch.randn(5)
+    rows = dense_rows(w, torch.bfloat16)
+    assert rows.shape == (5, 16) and rows.dtype == torch.bfloat16 and not rows[:, 13:].any()
+    assert torch.equal(rows[:, :13], w.to(torch.bfloat16))
+    ops = layer_operands([w, b, s, lb], torch.bfloat16)
+    assert torch.equal(ops[1], b.to(torch.bfloat16).float())  # added in bf16
+    assert torch.equal(ops[2], s) and torch.equal(ops[3], lb)  # LayerNorm stays f32
 
 
 def test_encoder_kernel_layout_is_hwio():
@@ -171,13 +260,17 @@ def test_off_the_cpu_the_wrappers_launch_or_raise(no_launch_counted):
     obs, ws, bs = encoder_operands()
     with pytest.raises(TypeError, match="kernel takes"):
         encoder_forward(obs.to("meta"), meta(ws), meta(bs))
+    h0, z0, eps, gum, w, _, _, unimix, min_std = imagine_operands("small")
+    with pytest.raises(TypeError, match="kernel takes"):
+        imagine_rollout(*meta([h0, z0, eps, gum]), meta(w), unimix, min_std)
 
 
 def test_each_kernel_source_carries_its_note():
     srcs = {p.name: p.read_text() for p in cuda_build.sources()}
-    assert {"gru_cell.cu", "encoder.cu", "common.cu"} <= set(srcs)
+    assert {"gru_cell.cu", "encoder.cu", "imagine.cu", "common.cu"} <= set(srcs)
     for name, ref in (("gru_cell.cu", "dreamer_tpu/ops/gru_pallas.py"),
-                      ("encoder.cu", "dreamer_tpu/ops/conv_pallas.py")):
+                      ("encoder.cu", "dreamer_tpu/ops/conv_pallas.py"),
+                      ("imagine.cu", "dreamer_tpu/ops/imagine_pallas.py")):
         assert re.search(rf"Replaces: {re.escape(ref)}", srcs[name])
         assert "What bounds it" in srcs[name] and "Design:" in srcs[name]
         assert 'extern "C" int dt_' in srcs[name]
@@ -244,3 +337,38 @@ def test_float32_is_refused_on_card(cuda):
     x, hh, ops = gru_operands()
     with pytest.raises(TypeError, match="bfloat16"):
         gru_cell(x.to(cuda), hh.to(cuda), *[o.to(cuda) for o in ops])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n,steps", [("small", 4, 6), ("flagship", 50, 30)])
+def test_imagine_kernel_matches_plain_per_step_on_card(cuda, shape, n, steps):
+    """The whole rollout on the card held step by step
+    (``imagine_cuda.hold_rollout``: relaunched at T = 1 from its own states,
+    equal bit for bit, and held to the plain step), then the plain rollout's
+    states as one T = 1 launch (``hold_steps``)."""
+    h0, z0, eps, gum, w, rows, classes, unimix, min_std = imagine_operands(shape, n, steps)
+    h0, z0, eps, gum = (v.to(cuda) for v in (h0, z0, eps, gum))
+    w = [v.to(cuda) for v in w]
+    before = imagine_rollout.launches
+    out = imagine_rollout(h0, z0, eps, gum, w, unimix, min_std)
+    torch.cuda.synchronize()
+    assert imagine_rollout.launches == before + 1
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    stats = imagine_cuda.hold_rollout(out, eps, gum, w, unimix, min_std)
+    assert stats["failures"] == [] and stats["carry_mismatches"] == 0, stats
+    ref = imagine_rollout_plain(h0, z0, eps, gum, w, unimix, min_std)
+    stats = imagine_cuda.hold_steps(ref[2], ref[3], eps, gum, w, unimix, min_std)[0]
+    assert stats["failures"] == [], stats
+
+
+@pytest.mark.cuda
+def test_imagine_refuses_float32_and_wide_rows_on_card(cuda):
+    h0, z0, eps, gum, w, rows, classes, unimix, min_std = imagine_operands(
+        "small", dtype=torch.float32)
+    args = [v.to(cuda) for v in (h0, z0, eps, gum)]
+    with pytest.raises(TypeError, match="bfloat16"):
+        imagine_rollout(*args, [v.to(cuda) for v in w], unimix, min_std)
+    h0, z0, eps, gum, w, rows, classes, unimix, min_std = imagine_operands("small")
+    wide = gum.reshape(*gum.shape[:2], 2, 64).to(cuda)  # 64 classes: more than a warp
+    with pytest.raises(TypeError, match="32 classes"):
+        imagine_rollout(*args[:3], wide.contiguous(), [v.to(cuda) for v in w], unimix, min_std)
