@@ -8,10 +8,13 @@ Phases, each printing its lines; any failure exits non-zero:
 1. card:    the card's name and power limit, as nvidia-smi prints them.
 2. build:   compile the CUDA kernels under dreamer_tpu_torch/csrc with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, in
-            bf16 at the flagship shapes (GRU N = 1, 50, 64 rows; encoder
-            N = 1, 50, 64 and the warm start's 1250 frames), with its time
-            beside the plain version's, one library call's and the least
-            time the card could take (its bound).
+            bf16 at the flagship shapes (GRU N = 1, 50, 64 rows; the
+            whole-scan GRU at T 30 x B 50, its carry held bit for bit by a
+            T = 1 relaunch from its own states, and at the world-model path's
+            T 1 x B 1500; encoder N = 1, 50, 64, the warm start's 1250 frames
+            and the world-model update's 1500 under both normalisation
+            tables), with its time beside the plain version's, one library
+            call's and the least time the card could take (its bound).
 4. policy:  the serving path, Policy.policy_reset then policy_act_observe
             steps with a reset row partway, at the flagship widths of
             configs/car_racer.yaml (read by the port's own YAML reader) with
@@ -41,7 +44,18 @@ Phases, each printing its lines; any failure exits non-zero:
             versions) from the same weights, batch and noise (a sanity check
             guarding no kernel), with the readings of three faulty kernels
             beside it for the record.
-8. the "kernels" JSON line, then the result line.
+8. train_iteration: the whole learner iteration, Trainer.train_iteration
+            (2 world-model updates, then 2 actor-critic updates, step + 1) on
+            the same ring: 1 warm-up and TRAIN_ITERATIONS timed iterations,
+            ms per iteration and per wm_step, the launch counts of each
+            iteration (whole-scan GRU 2, encoder 4, imagine 2, GRU cell
+            2 x 30 + 2 x 24), finite unskipped updates, world-model parameters
+            that moved, the actor-critic half reading the updated world
+            model's kernel layouts, the posterior scan's kernels held at the
+            update's own operands (``observe_scan.hold_observe``), a profile
+            of one iteration; then one wm_update on the card against the same
+            update on the CPU (a sanity check guarding no kernel).
+9. the "kernels" JSON line, then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
 """
@@ -50,6 +64,7 @@ from __future__ import annotations
 
 import copy
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -62,6 +77,8 @@ CONFIG = ROOT / "configs" / "car_racer.yaml"
 # HBM bandwidth and dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# and the f32 rate outside the tensor cores, for products with f32 inputs.
+F32_FLOP_PER_S = 67e12
 
 # Each kernel is held to its plain version by the tolerance defined beside its
 # wrapper (ops.gru_cuda.tolerance, ops.conv_cuda.tolerance), which says why.
@@ -91,6 +108,14 @@ PEAKED_PRIOR = 8.0
 # own check instead (per kernel at the path's shapes, and the imagination at
 # the path's own operands by ``hold_rollout``).
 AC_CARD_VS_CPU_RTOL = 0.1
+# Timed learner iterations, each about a second; the host's clock varies
+# between them (it shares its machine), so the median is printed too.
+TRAIN_ITERATIONS = 5
+# Card against CPU for one wm_update, relative, on the losses and the
+# gradient norm: the same reasons as the AC update's (near-tie flips move a
+# row's states; each loss is a mean over 50 x 30 terms); a sanity check of the
+# update on the card, guarding no kernel.
+WM_CARD_VS_CPU_RTOL = 0.1
 
 
 def fail(msg: str) -> None:
@@ -122,9 +147,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, f32_flops: float = 0.0):
+    """The least time for the work: bytes over the memory rate against bf16
+    operations over the tensor-core rate plus f32 operations over the f32
+    rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = (flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -135,7 +163,7 @@ def max_err(out, ref, tolerance, name: str) -> float:
     size of what it compares."""
     import torch
 
-    out, ref = out.float(), ref.float()
+    out, ref = out.detach().float(), ref.detach().float()
     if out.shape != ref.shape:
         fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
     if not torch.isfinite(out).all():
@@ -207,6 +235,86 @@ def check_gru(cfg, card: str) -> dict:
             **times[cfg.train.batch_size]}
 
 
+def check_gru_scan(cfg, card: str) -> dict:
+    """The whole-scan GRU at T 30 x B 50 (the TPU kernel's own form) and at
+    the world-model path's form, T 1 over the 30 x 50 pre-step states: all
+    five outputs against the plain version; the T 30 launch relaunched at
+    T = 1 from its own states, equal bit for bit (``hold_scan``); times
+    beside cuDNN's GRU over the same x and h0 (h_seq only, no residuals)."""
+    import torch
+
+    from dreamer_tpu_torch.nets.gru import GRUCell
+    from dreamer_tpu_torch.ops import gru_scan_cuda as gs
+    from dreamer_tpu_torch.ops.gru_cuda import gru_cell
+
+    H = cfg.wm.hidden_dim
+    I = cfg.wm.latent_dim + cfg.env.action_dim
+    B, T = cfg.train.batch_size, cfg.train.horizon
+    gen = torch.Generator().manual_seed(11)
+    cell = GRUCell(I, H, torch.bfloat16, gen).cuda()
+    ops = cell.kernel_weights()
+    lib_gru = torch.nn.GRU(I, H).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        lib_gru.weight_ih_l0.copy_(ops[0][:, :I])
+        lib_gru.weight_hh_l0.copy_(ops[1][:, :H])
+        lib_gru.bias_ih_l0.copy_(ops[2])
+        lib_gru.bias_hh_l0.copy_(ops[3])
+    lib_gru.flatten_parameters()
+    worst, times = 0.0, {}
+    for t, b in ((T, B), (1, T * B)):
+        xs = torch.randn(t, b, I, generator=gen).to("cuda", torch.bfloat16)
+        # The path's h0 are bf16-valued states: the forward rounds them.
+        h0 = torch.randn(b, H, generator=gen).clamp(-1, 1).to(torch.bfloat16).float().cuda()
+        out = gs.gru_scan(xs, h0, *ops)
+        torch.cuda.synchronize()
+        stats = gs.compare(out, gs.gru_scan_plain(xs, h0, *ops))
+        if t > 1:
+            held = gs.hold_scan(out, xs, h0, ops)
+            stats["failures"] += held["failures"]
+            carry = (f"; the launch relaunched at T = 1 from its own {t * b} states differs "
+                     f"bit for bit in {int(held['carry_mismatches'])} (step, row) pairs")
+        else:
+            # One step on bf16-valued states sums as the GRU cell kernel does.
+            same = gru_cell(xs[0], h0.to(torch.bfloat16), *ops)
+            cell_diff = int((out[0][0].to(torch.bfloat16) != same).sum())
+            carry = (f"; h' rounded to bf16 differs from the GRU cell kernel's output in "
+                     f"{cell_diff} of {same.numel()} elements (not gated)")
+        errs = " ".join(f"{n} {stats[f'max_abs_err_{n}']:.3e}" for n in gs.NAMES)
+        print(f"kernels: gru_scan T={t} B={b}: max |kernel - plain| {errs} "
+              f"(tol {gs.TOL} abs + rel){carry}", flush=True)
+        if stats["failures"]:
+            fail(f"gru_scan T={t} B={b}: {stats['failures']}")
+        worst = max([worst] + [stats[f"max_abs_err_{n}"] for n in gs.NAMES])
+        with torch.no_grad():
+            h16 = h0.to(torch.bfloat16)[None]
+            tm = {"ms": cuda_ms(lambda: gs.gru_scan(xs, h0, *ops), 20),
+                  "plain_ms": cuda_ms(lambda: gs.gru_scan_plain(xs, h0, *ops), 5, 1)}
+            try:  # the yardstick only: the port never calls it
+                tm["library_ms"] = cuda_ms(lambda: lib_gru(xs, h16), 20)
+            except RuntimeError as e:
+                print(f"kernels: gru_scan: cuDNN's bf16 GRU did not run ({e}): library_ms "
+                      "null", flush=True)
+                tm["library_ms"] = None
+        nbytes, ops_bf16, ops_f32 = gs.bound_numbers(t, b, I, H)
+        tm["bound_ms"], tm["bound_by"] = bound_ms(nbytes, ops_bf16, ops_f32)
+        times[(t, b)] = tm
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        blocks = (b + 7) // 8 * (1 if t > 1 else (H + 31) // 32)
+        print(f"kernels: gru_scan T={t} B={b} kernel_ms={tm['ms']:.4f} "
+              f"plain_ms={tm['plain_ms']:.4f} library_ms={tm['library_ms']} "
+              f"(cuDNN torch.nn.GRU, h_seq only) bound_ms={tm['bound_ms']:.4f} "
+              f"({tm['bound_by']}: {nbytes / 1e6:.2f} MB, {ops_bf16 / 1e9:.2f} GFLOP bf16 + "
+              f"{ops_f32 / 1e9:.2f} GFLOP f32); {blocks} blocks on {sms} SMs on {card}",
+              flush=True)
+    # The line's times are at the world-model path's form.
+    return {"name": "gru_scan", "route": "cuda", "source": "dreamer_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "dreamer_tpu/ops/gru_pallas.py:223", "max_abs_err": worst,
+            **times[(1, T * B)],
+            "ms_at_T30_B50": times[(T, B)]["ms"], "plain_ms_at_T30_B50": times[(T, B)]["plain_ms"],
+            "library_ms_at_T30_B50": times[(T, B)]["library_ms"],
+            "bound_ms_at_T30_B50": times[(T, B)]["bound_ms"]}
+
+
 def check_encoder(cfg, card: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -220,45 +328,53 @@ def check_encoder(cfg, card: str) -> dict:
     draw_zero_params([nets], gen)
     nets = nets.cuda()
     ws, bs = nets.encoder_weights()
+    tables = {"serve": nets.serve_norm, "train": nets.train_norm}
     oihw = [c.weight.detach().to(torch.bfloat16) for c in nets.enc_convs]
     bias16 = [c.bias.detach().to(torch.bfloat16) for c in nets.enc_convs]
     Hf, Wf = cfg.wm.obs_size
-    # Serving's 1 and 64 envs, and the AC path's B x Tw frames of a warm start.
+    # Serving's 1 and 64 envs (serving's table), the AC path's B x Tw frames of
+    # a warm start and the WM update's B x horizon frames (the training
+    # table; the 1500 frames also under serving's, so that each table is held
+    # at the path's largest shape).
     n_ac = cfg.train.batch_size * (cfg.train.sequence_length // 2)
+    n_wm = cfg.train.batch_size * cfg.train.horizon
     worst, times = 0.0, {}
-    for n in (1, 50, 64, n_ac):
+    for n, rounding in ((1, "serve"), (50, "serve"), (64, "serve"), (n_ac, "train"),
+                        (n_wm, "serve"), (n_wm, "train")):
+        table = tables[rounding]
         obs = torch.randint(0, 256, (n, Hf, Wf, 3), dtype=torch.uint8, generator=gen).cuda()
-        out = encoder_forward(obs, ws, bs)
+        out = encoder_forward(obs, ws, bs, table)
         torch.cuda.synchronize()
-        ref = encoder_forward_plain(obs, ws, bs)
-        worst = max(worst, max_err(out, ref, tolerance, f"kernels: encoder N={n}"))
-        if n != 50:
+        ref = encoder_forward_plain(obs, ws, bs, table)
+        worst = max(worst, max_err(out, ref, tolerance,
+                                   f"kernels: encoder N={n} ({rounding} table)"))
+        if n != 50 and (n, rounding) != (n_wm, "serve"):
             def library():
                 # The cuDNN yardstick: four bf16 conv2d + SiLU, NHWC out.
-                x = (obs.float() / 255.0 - 0.5).to(torch.bfloat16).permute(0, 3, 1, 2)
+                x = table[obs.long()].permute(0, 3, 1, 2)
                 for w, b in zip(oihw, bias16):
                     x = F.silu(F.conv2d(x, w, b, stride=2, padding=1))
                 return x.permute(0, 2, 3, 1).reshape(n, -1)
 
-            t = {"ms": cuda_ms(lambda: encoder_forward(obs, ws, bs), 20),
-                 "plain_ms": cuda_ms(lambda: encoder_forward_plain(obs, ws, bs), 20),
+            t = {"ms": cuda_ms(lambda: encoder_forward(obs, ws, bs, table), 20),
+                 "plain_ms": cuda_ms(lambda: encoder_forward_plain(obs, ws, bs, table), 20),
                  "library_ms": cuda_ms(library, 20)}
             flops, cin, hw = 0, 3, Hf * Wf
             for w in ws:
                 hw //= 4
                 flops += 2 * n * hw * w.shape[3] * 16 * cin
                 cin = w.shape[3]
-            nbytes = obs.numel() + 2 * (sum(w.numel() for w in ws) + out.numel()) \
+            nbytes = obs.numel() + 2 * (sum(w.numel() for w in ws) + out.numel() + 256) \
                 + 4 * sum(b.numel() for b in bs)
             t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
             times[n] = t
             print(f"kernels: encoder N={n} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
                   f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
                   f"({t['bound_by']}) on {card}", flush=True)
-    # The line's times are at the AC path's shape.
+    # The line's times are at the world-model update's shape.
     return {"name": "encoder", "route": "cuda", "source": "dreamer_tpu_torch/csrc/encoder.cu",
             "replaces": "dreamer_tpu/ops/conv_pallas.py:144", "max_abs_err": worst,
-            **times[n_ac]}
+            **times[n_wm], "ms_at_1250": times[n_ac]["ms"]}
 
 
 def run_policy(policy, cfg, card: str) -> None:
@@ -527,19 +643,21 @@ def run_ac_step(cfg, card: str) -> dict:
 
     from dreamer_tpu_torch.ops.conv_cuda import encoder_forward
     from dreamer_tpu_torch.ops.gru_cuda import gru_cell
+    from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
     from dreamer_tpu_torch.ops.imagine_cuda import hold_rollout, imagine_rollout
 
     trainer, ring = flagship_trainer(cfg)
     state = trainer.init_state()
-    draw_zero_params([state.actor], torch.Generator().manual_seed(6))
+    ac = state.ac
+    draw_zero_params([ac.actor], torch.Generator().manual_seed(6))
     gen = torch.Generator(device="cuda").manual_seed(7)
     Tw = cfg.train.sequence_length // 2
     E = cfg.train.ac_epochs
-    want = {"imagine_rollout": E, "encoder": E, "gru_cell": E * (Tw - 1)}
+    want = {"imagine_rollout": E, "encoder": E, "gru_cell": E * (Tw - 1), "gru_scan": 0}
     kernels = {"imagine_rollout": imagine_rollout, "encoder": encoder_forward,
-               "gru_cell": gru_cell}
-    actor0 = [p.detach().clone() for p in state.actor.parameters()]
-    critic0 = [p.detach().clone() for p in state.critic.parameters()]
+               "gru_cell": gru_cell, "gru_scan": gru_scan}
+    actor0 = [p.detach().clone() for p in ac.actor.parameters()]
+    critic0 = [p.detach().clone() for p in ac.critic.parameters()]
     state, _ = trainer.ac_step(state, ring, gen)  # warm-up
     torch.cuda.synchronize()
     for k in kernels.values():
@@ -559,7 +677,7 @@ def run_ac_step(cfg, card: str) -> dict:
             fail(f"ac_step {step}: non-finite {bad} or a skipped update")
     launches = {n: k.launches for n, k in kernels.items()}
     for name, before in (("actor", actor0), ("critic", critic0)):
-        now = getattr(state, name).parameters()
+        now = getattr(ac, name).parameters()
         if all(torch.equal(a, b) for a, b in zip(before, now)):
             fail(f"ac_step: the {name}'s parameters did not change")
     print(f"ac_step: {AC_STEPS} steps after 1 warm-up: "
@@ -575,25 +693,23 @@ def run_ac_step(cfg, card: str) -> dict:
     batch = trainer.buffer.sample(ring, cfg.train.batch_size, gen, t_out=Tw,
                                   with_scalars=False)
     noise = trainer.sample_ac_noise(cfg.train.batch_size, gen)
-    target0 = [p.detach().clone() for p in state.target_critic.parameters()]
-    state, _ = trainer.agent.ac_update(state, trainer.rssm, batch, noise)
+    target0 = [p.detach().clone() for p in ac.target_critic.parameters()]
+    ac, _ = trainer.agent.ac_update(ac, trainer.rssm, batch, noise)
     tau = cfg.agent.target_tau
-    for t0, c1, t1 in zip(target0, state.critic.parameters(),
-                          state.target_critic.parameters()):
+    for t0, c1, t1 in zip(target0, ac.critic.parameters(), ac.target_critic.parameters()):
         want_t = (1.0 - tau) * t0 + tau * c1.detach()
         if (t1 - want_t).abs().max() > 1e-6 * (1 + want_t.abs().max()):
             fail("ac_step: the target critic did not move by tau toward the critic")
     with torch.no_grad():
         z0, h0 = trainer.rssm.warm_start(batch[0], batch[1], noise.warm)
-        traj = trainer.rssm.imagine(state.actor, z0, h0, noise.eps, noise.gum,
-                                    cfg.agent.min_std)
+        traj = trainer.rssm.imagine(ac.actor, z0, h0, noise.eps, noise.gum, cfg.agent.min_std)
     if traj.action.abs().max() > 1.0 or not bool(torch.isfinite(traj.h).all()):
         fail("ac_step: dream actions outside [-1, 1] or non-finite states")
     one_hot_rows(traj.z.reshape(-1, cfg.wm.latent_dim), cfg.wm, "ac_step: dream z")
     one_hot_rows(z0, cfg.wm, "ac_step: warm-start z")
     # The kernel at the path's own operands (the trained actor, the warm
     # start's states), held step by step.
-    weights = [*state.actor.imagine_weights(), *trainer.rssm.nets.imagine_weights()]
+    weights = [*ac.actor.imagine_weights(), *trainer.rssm.nets.imagine_weights()]
     dream = [v.float().contiguous() for v in (h0, z0, noise.eps, noise.gum)]
     out = imagine_rollout(*dream, weights, cfg.wm.unimix, cfg.agent.min_std)
     report_hold(hold_rollout(out, *dream[2:], weights, cfg.wm.unimix, cfg.agent.min_std),
@@ -605,38 +721,225 @@ def run_ac_step(cfg, card: str) -> dict:
     return launches
 
 
-def profile_ac_step(trainer, state, ring, card: str) -> None:
+PHASES = ("ac_update/", "wm_update/")
+
+
+def profile_step(label: str, step, card: str, top: int = 8) -> None:
+    """One call of ``step`` (a learner step) under torch.profiler: the
+    device's busy share, the host's time in each phase range (train/agent.py,
+    train/world_model.py) and the kernels that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        trainer.ac_step(state, ring, gen)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - start) * 1e6
     # The phase ranges also appear as device-side annotations spanning their
     # kernels: those are not device work and are left out of the sums.
     per_kernel = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                  and not e.key.startswith("ac_update/")]
+                  and not e.key.startswith(PHASES)]
     busy = sum(d for d, _, _ in per_kernel)
     if busy == 0:
-        print("profile: ac_step: torch.profiler saw no device time: not measured", flush=True)
+        print(f"profile: {label}: torch.profiler saw no device time: not measured", flush=True)
         return
-    print(f"profile: ac_step: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
+    print(f"profile: {label}: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
           f"({100 * busy / wall_us:.1f}% busy; the profiler slows the host), "
           f"{sum(c for _, c, _ in per_kernel)} device kernels, on {card}", flush=True)
-    # The phases of each update (torch.profiler ranges in train/agent.py):
-    # the host's time inside each range, the losses being the rest.
+    # The host's time inside each range, the losses being the rest.
     for e in sorted(prof.key_averages(), key=lambda e: e.key):
-        if e.key.startswith("ac_update/") and e.device_type == DeviceType.CPU:
-            print(f"profile: ac_step   phase {e.key}: x{e.count}, host "
+        if e.key.startswith(PHASES) and e.device_type == DeviceType.CPU:
+            print(f"profile: {label}   phase {e.key}: x{e.count}, host "
                   f"{e.cpu_time_total / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms", flush=True)
-    for dev, cnt, key in sorted(per_kernel, reverse=True)[:8]:
-        print(f"profile: ac_step   {dev / 1e3:8.3f} ms  x{cnt}  {key[:90]}", flush=True)
+    for dev, cnt, key in sorted(per_kernel, reverse=True)[:top]:
+        print(f"profile: {label}   {dev / 1e3:8.3f} ms  x{cnt}  {key[:90]}", flush=True)
+
+
+def profile_ac_step(trainer, state, ring, card: str) -> None:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    profile_step("ac_step", lambda: trainer.ac_step(state, ring, gen), card)
+
+
+def run_train_iteration(cfg, card: str) -> dict:
+    """The main path: Trainer.train_iteration at the flagship widths.  Returns
+    the kernels' launches over its TRAIN_ITERATIONS timed iterations."""
+    import torch
+
+    from dreamer_tpu_torch.ops import imagine_scan
+    from dreamer_tpu_torch.ops.conv_cuda import encoder_forward
+    from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_kernel_layout
+    from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
+    from dreamer_tpu_torch.ops.imagine_cuda import imagine_rollout
+    from dreamer_tpu_torch.ops.observe_scan import hold_observe
+
+    trainer, ring = flagship_trainer(cfg)
+    state = trainer.init_state()
+    nets = trainer.rssm.nets
+    draw_zero_params([state.ac.actor], torch.Generator().manual_seed(12))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t = cfg.train
+    Tw = t.sequence_length // 2
+    want = {"gru_scan": t.wm_epochs, "encoder": t.wm_epochs + t.ac_epochs,
+            "imagine_rollout": t.ac_epochs,
+            "gru_cell": t.wm_epochs * t.horizon + t.ac_epochs * (Tw - 1)}
+    kernels = {"gru_scan": gru_scan, "encoder": encoder_forward,
+               "imagine_rollout": imagine_rollout, "gru_cell": gru_cell}
+
+    # Warm-up, recording the GRU layout each imagination launch reads: the
+    # actor-critic half must read the world model as its update left it.
+    read, real = [], imagine_scan.imagine_rollout
+    layout0 = nets.gru.kernel_weights()[0].clone()
+
+    def recorder(h0, z0, eps, gum, weights, unimix, min_std):
+        read.append(weights[12])
+        return real(h0, z0, eps, gum, weights, unimix, min_std)
+
+    imagine_scan.imagine_rollout = recorder
+    try:
+        state, _ = trainer.train_iteration(state, ring, gen)
+    finally:
+        imagine_scan.imagine_rollout = real
+    fresh = gru_kernel_layout(nets.gru.kernel_i, nets.gru.kernel_h, nets.gru.bias_i,
+                              nets.gru.bias_h, torch.bfloat16)[0]
+    if len(read) != t.ac_epochs or not all(torch.equal(w, fresh) for w in read) \
+            or torch.equal(fresh, layout0):
+        fail("train_iteration: the actor-critic half did not read the updated world model's "
+             "kernel layouts")
+    torch.cuda.synchronize()
+
+    wm_times = []
+    wm_step = trainer.wm_step
+
+    def timed_wm_step(*args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = wm_step(*args)
+        torch.cuda.synchronize()
+        wm_times.append(time.perf_counter() - start)
+        return out
+
+    trainer.wm_step = timed_wm_step
+    wm0 = [p.detach().clone() for p in nets.parameters()]
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for it in range(TRAIN_ITERATIONS):
+        before = {n: k.launches for n, k in kernels.items()}
+        start = time.perf_counter()
+        state, metrics = trainer.train_iteration(state, ring, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+        got = {n: k.launches - before[n] for n, k in kernels.items()}
+        if got != want:
+            fail(f"train_iteration {it}: launches {got}, expected {want}")
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
+        if bad or float(metrics["wm/update_skipped"]) or float(metrics["ac/update_skipped"]):
+            fail(f"train_iteration {it}: non-finite {bad} or a skipped update")
+    launches = {n: k.launches for n, k in kernels.items()}
+    del trainer.wm_step
+    still = sum(torch.equal(a, b) for a, b in zip(wm0, nets.parameters()))
+    if still:
+        fail(f"train_iteration: {still} of {len(wm0)} world-model parameters did not move")
+    if int(state.step) != 1 + TRAIN_ITERATIONS:
+        fail(f"train_iteration: step is {int(state.step)}")
+    print(f"train_iteration: {TRAIN_ITERATIONS} iterations after 1 warm-up: "
+          + " ".join(f"{1e3 * x:.1f}" for x in times)
+          + f" ms; median {1e3 * statistics.median(times):.2f}, mean "
+          f"{1e3 * sum(times) / len(times):.2f} ms/train_iteration; wm_step "
+          + " ".join(f"{1e3 * x:.1f}" for x in wm_times)
+          + f" ms, median {1e3 * statistics.median(wm_times):.2f}, mean "
+          f"{1e3 * sum(wm_times) / len(wm_times):.2f} ms/wm_step "
+          f"({t.wm_epochs} WM + {t.ac_epochs} AC updates each); launches per iteration "
+          + ", ".join(f"{n} {v}" for n, v in want.items())
+          + f" (held); all {len(wm0)} world-model parameters moved; the AC half read the "
+          f"updated layouts (held); last metrics "
+          + ", ".join(f"{k.split('/')[-1]}={float(v.float().mean()):.4g}"
+                      for k, v in metrics.items() if k.startswith("wm/"))
+          + f" on {card}", flush=True)
+
+    # The posterior scan's kernels at an update's own operands.
+    H = t.horizon
+    obs, actions = trainer.buffer.sample(ring, t.batch_size, gen, t_out=H, with_scalars=False)
+    gum = trainer.sample_wm_noise(t.batch_size, gen)
+    with torch.no_grad():
+        seq = trainer.rssm.observe_sequence(obs, actions, gum)
+        feats = nets.encode_obs(obs, train=True).transpose(0, 1)
+    a_in = torch.cat([torch.zeros_like(actions[:, :1]), actions[:, :-1]], 1).transpose(0, 1)
+    stats = hold_observe(nets, feats, a_in, gum, seq.h.transpose(0, 1), seq.z.transpose(0, 1))
+    print(f"train_iteration: the posterior scan's kernels at the update's own {stats['rows']} "
+          f"pre-step states: GRU cell relaunched, differing from the forward bit for bit in "
+          f"{int(stats['carry_mismatches'])} (step, row) pairs; max |cell - plain| "
+          f"{stats['max_abs_err_cell']:.3e} (tol 2e-2 abs + rel); near ties "
+          f"{int(stats['near_ties'])} of {int(stats['latent_rows'])} latent rows, flipped "
+          f"there {int(stats['flips'])}, elsewhere {int(stats['flips_not_near_tie'])}; "
+          f"whole-scan GRU at T 1 x {stats['rows']}: max |kernel - plain| "
+          + " ".join(f"{n} {stats[f'scan_max_abs_err_{n}']:.3e}"
+                     for n in ("h_seq", "r", "z", "n", "hn"))
+          + f" (tol 1e-3 abs + rel); its h' in bf16 differing from the forward's in "
+          f"{int(stats['scan_vs_forward_mismatches'])} (step, row) pairs (not gated)", flush=True)
+    if stats["failures"]:
+        fail(f"train_iteration: posterior scan kernels: {stats['failures']}")
+    one_hot_rows(seq.z.reshape(-1, cfg.wm.latent_dim), cfg.wm, "train_iteration: posterior z")
+
+    gen_p = torch.Generator(device="cuda").manual_seed(14)
+    profile_step("train_iteration", lambda: trainer.train_iteration(state, ring, gen_p), card,
+                 top=10)
+    return launches
+
+
+def check_wm_update_vs_cpu(cfg, card: str) -> None:
+    """One wm_update on the card and on the CPU (plain versions), from the
+    same seeded weights (the parameters the init leaves zero drawn), batch and
+    gumbels, in bf16 on both, held to WM_CARD_VS_CPU_RTOL: a sanity check of
+    the update on the card, guarding no kernel."""
+    import torch
+
+    from dreamer_tpu_torch.core.dists import sample_gumbel
+    from dreamer_tpu_torch.train import wm_update
+
+    c, t = cfg.wm, cfg.train
+    B, H = t.batch_size, t.horizon
+    gum = sample_gumbel((H, B, c.latent_rows, c.latent_classes),
+                        torch.Generator().manual_seed(15), "cpu")
+
+    def update(device):
+        trainer, ring = flagship_trainer(cfg, device)
+        state = trainer.init_state()
+        draw_zero_params([trainer.rssm.nets], torch.Generator().manual_seed(16))
+        draws = torch.Generator().manual_seed(17)
+        hi = trainer.buffer.valid_starts(ring)
+        env_idx, starts = trainer.buffer.pick_indices(ring, *(
+            torch.randint(0, n, (B,), generator=draws).to(device)
+            for n in (trainer.buffer.num_envs, hi, hi)))
+        batch = trainer.buffer.gather(ring, env_idx, starts, H)
+        start = time.perf_counter()
+        _, metrics = wm_update(trainer.rssm, trainer.wm_opt, state.wm, batch, gum.to(device),
+                               cfg)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        print(f"wm_update: one update on {device} in {time.perf_counter() - start:.2f} s",
+              flush=True)
+        return metrics
+
+    ref, got = update("cpu"), update("cuda")
+    gated = ("wm/loss", "wm/loss_pred", "wm/kl_dyn", "wm/kl_rep", "wm/grad_norm")
+    worst = 0.0
+    for k in ref:
+        rel = abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6)
+        if k in gated:
+            worst = max(worst, rel)
+        print(f"wm_update: card vs cpu {k}: card {got[k]:.6g} cpu {ref[k]:.6g} rel {rel:.3e}"
+              f"{' (gated)' if k in gated else ''}", flush=True)
+    print(f"wm_update: card vs cpu, worst relative difference of the losses and gradient norm "
+          f"{worst:.3e} (tolerance {WM_CARD_VS_CPU_RTOL}, a sanity check) on {card}", flush=True)
+    if worst > WM_CARD_VS_CPU_RTOL or got["wm/update_skipped"] or ref["wm/update_skipped"]:
+        fail(f"wm_update: card vs cpu differ by {worst:.3e} rel (tolerance "
+             f"{WM_CARD_VS_CPU_RTOL}) or an update was skipped")
 
 
 def kernel_faults():
@@ -653,8 +956,9 @@ def kernel_faults():
         ("imagine kernel without unimix", imagine_scan, "imagine_rollout",
          lambda f: lambda h0, z0, eps, gum, w, unimix, min_std: f(h0, z0, eps, gum, w, 0.0,
                                                                    min_std)),
-        ("encoder kernel without its biases", wm_nets, "encoder_forward",
-         lambda f: lambda x, ws, bs: f(x, ws, [torch.zeros_like(b) for b in bs])),
+        ("encoder kernel without its biases", wm_nets, "encode",
+         lambda f: lambda x, table, ops, params: f(
+             x, table, (ops[0], [torch.zeros_like(b) for b in ops[1]]), params)),
         ("GRU cell kernel without its hidden bias", gru, "gru_cell",
          lambda f: lambda x, h, wi, wh, bi, bh: f(x, h, wi, wh, bi, torch.zeros_like(bh))),
     )
@@ -681,7 +985,7 @@ def check_ac_update_vs_cpu(cfg, card: str) -> None:
 
     def update(device):
         trainer, ring = flagship_trainer(cfg, device)
-        state = trainer.init_state()
+        state = trainer.init_state().ac
         draw_zero_params([state.actor, trainer.rssm.nets], torch.Generator().manual_seed(6))
         draws = torch.Generator().manual_seed(10)
         hi = trainer.buffer.valid_starts(ring)
@@ -740,6 +1044,7 @@ def main() -> int:
         from dreamer_tpu_torch.ops import cuda_build
         from dreamer_tpu_torch.ops.conv_cuda import encoder_forward
         from dreamer_tpu_torch.ops.gru_cuda import gru_cell
+        from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
         from dreamer_tpu_torch.ops.imagine_cuda import imagine_rollout
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -761,38 +1066,50 @@ def main() -> int:
     cfg = DreamerConfig.from_yaml(str(CONFIG))
     if cfg.runtime.compute_dtype != "bfloat16":
         fail(f"{CONFIG.name} computes in {cfg.runtime.compute_dtype}; the kernels take bf16")
-    kernels = [check_gru(cfg, card), check_encoder(cfg, card), check_imagine(cfg, card)]
+    kernels = [check_gru(cfg, card), check_gru_scan(cfg, card), check_encoder(cfg, card),
+               check_imagine(cfg, card)]
+    counted = (gru_cell, gru_scan, encoder_forward, imagine_rollout)
+    names = ("gru_cell", "gru_scan", "encoder", "imagine_rollout")
 
     check_policy_vs_cpu(cfg)
     from dreamer_tpu_torch.train import Policy
 
     policy = Policy(cfg, seed=0)
-    gru_cell.launches = 0
-    encoder_forward.launches = 0
-    imagine_rollout.launches = 0
+    for k in counted:
+        k.launches = 0
     run_policy(policy, cfg, card)
-    on_policy = {"gru_cell": gru_cell.launches, "encoder": encoder_forward.launches,
-                 "imagine_rollout": imagine_rollout.launches}
+    on_policy = {n: k.launches for n, k in zip(names, counted)}
     for name in ("gru_cell", "encoder"):
         if on_policy[name] == 0:
             fail(f"the policy path never launched {name}")
     profile_policy(policy, cfg, card)
 
     on_ac = run_ac_step(cfg, card)
-    for k in kernels:
-        if on_ac[k["name"]] == 0:
-            fail(f"the ac_step path never launched {k['name']}")
-        # The line's count is this slice's main path, Trainer.ac_step; both
-        # paths' counts are kept beside it.
-        k["launches"] = on_ac[k["name"]]
-        k["launches_by_path"] = {"policy": on_policy[k["name"]], "ac_step": on_ac[k["name"]]}
+    for name in ("gru_cell", "encoder", "imagine_rollout"):
+        if on_ac[name] == 0:
+            fail(f"the ac_step path never launched {name}")
     check_ac_update_vs_cpu(cfg, card)
 
-    # GRU and encoder times at N = 64 (the N = 1 times are on the "kernels:"
-    # lines above); the imagination's at the flagship B = 50, T = 30.
+    # This slice's main path, Trainer.train_iteration: every kernel.
+    on_iteration = run_train_iteration(cfg, card)
+    for k in kernels:
+        if on_iteration[k["name"]] == 0:
+            fail(f"the train_iteration path never launched {k['name']}")
+        # The line's count is the main path's; each path's count is kept beside it.
+        k["launches"] = on_iteration[k["name"]]
+        k["launches_by_path"] = {"policy": on_policy[k["name"]],
+                                 "ac_step": on_ac[k["name"]],
+                                 "train_iteration": on_iteration[k["name"]]}
+    check_wm_update_vs_cpu(cfg, card)
+
+    # Times at the main path's shapes: the GRU cell at 50 rows, the whole-scan
+    # GRU at T 1 x 1500, the encoder at 1500 frames, the imagination at B 50,
+    # T 30; a kernel's other shapes are on its "kernels:" lines and as extra keys.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}), flush=True)
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
+                                   **{k: v for k, v in kern.items() if k not in keys}}
+                                  for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

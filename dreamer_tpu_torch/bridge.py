@@ -4,15 +4,17 @@ A tree is a nested dict of numpy arrays, as the JAX package's params (or an
 orbax restore of them) give after ``jax.tree.map(np.asarray, ...)``.
 
 Layouts: a flax Dense ``kernel`` (in, out) is ``Dense.weight`` (out, in); a
-flax Conv kernel HWIO is ``EncoderConv.weight`` OIHW; the GRU keeps flax's
-fused ``(in, 3H)`` / ``(H, 3H)`` kernels, gate order r, z, n.  After a load the
-kernels' own layouts (the transposed GRU gate rows, the HWIO bf16 encoder
-weights) are made once, by ``WMNets.prepare_kernels``.
+flax Conv kernel HWIO is ``EncoderConv.weight`` OIHW; a flax ConvTranspose
+kernel (kh, kw, in, out) is ``DecoderConv.weight`` (in, out, kh, kw) flipped
+in both spatial axes; the GRU keeps flax's fused ``(in, 3H)`` / ``(H, 3H)``
+kernels, gate order r, z, n.  After a load the kernels' own layouts (the
+transposed GRU gate rows, the HWIO bf16 encoder weights) are made once, by
+``WMNets.prepare_kernels``.
 
-Covered: the ``wm`` subtrees but the decoder's, the ``actor`` and ``critic``
-trees, and a whole actor-critic training state (``load_ac_state``).  The
-decoder subtrees named in ``DEFERRED_WM_KEYS`` come with the world-model slice
-and are skipped; any other key raises.
+Covered: every ``wm`` subtree, the ``actor`` and ``critic`` trees, a whole
+actor-critic training state (``load_ac_state``) and a whole ``DreamerState``
+(``load_dreamer_state``), optimizer states included.  A key without a port
+parameter raises.
 """
 
 from __future__ import annotations
@@ -27,9 +29,6 @@ from dreamer_tpu_torch.nets.actor_critic import Actor, Critic
 from dreamer_tpu_torch.nets.mlp import MLP, Dense, LayerNorm
 from dreamer_tpu_torch.nets.wm_nets import WMNets
 
-DEFERRED_WM_KEYS = ("upscaler_1", "upscaler_ln", "upscaler_2", "dec_conv0", "dec_conv1",
-                    "dec_conv2", "dec_conv3")
-
 Tree = Dict[str, object]
 # (flax path, parameter, flax leaf -> torch layout, torch -> flax layout)
 _Entry = Tuple[Tuple[str, ...], nn.Parameter, object, object]
@@ -38,6 +37,8 @@ _same = lambda a: a  # noqa: E731
 _t2 = lambda a: a.T  # noqa: E731  Dense (in, out) <-> (out, in)
 _hwio_to_oihw = lambda a: a.transpose(3, 2, 0, 1)  # noqa: E731
 _oihw_to_hwio = lambda a: a.transpose(2, 3, 1, 0)  # noqa: E731
+_flax_to_deconv = lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)  # noqa: E731
+_deconv_to_flax = lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1]  # noqa: E731
 
 
 def _dense(prefix, d: Dense) -> Iterator[_Entry]:
@@ -68,6 +69,12 @@ def _wm_entries(nets: WMNets) -> Iterator[_Entry]:
         yield ("gru", name), getattr(g, name), _same, _same
     for name in ("dyn_head", "reward_head", "cont_head"):
         yield from _mlp((name,), getattr(nets, name))
+    yield from _dense(("upscaler_1",), nets.upscaler_1)
+    yield from _norm(("upscaler_ln",), nets.upscaler_ln)
+    yield from _dense(("upscaler_2",), nets.upscaler_2)
+    for i, conv in enumerate(nets.dec_convs):
+        yield (f"dec_conv{i}", "kernel"), conv.weight, _flax_to_deconv, _deconv_to_flax
+        yield (f"dec_conv{i}", "bias"), conv.bias, _same, _same
 
 
 def _mlp(prefix, m: MLP) -> Iterator[_Entry]:
@@ -92,11 +99,11 @@ def _leaves(tree: Tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
             yield prefix + (k,), v
 
 
-def _load(entries, tree: Tree, skip=()) -> None:
+def _load(entries, tree: Tree) -> None:
     entries = list(entries)
     known = {path for path, *_ in entries}
     for path, _ in _leaves(tree):
-        if path[0] not in skip and path not in known:
+        if path not in known:
             raise KeyError(f"no port parameter for {'/'.join(path)}")
     with torch.no_grad():
         for path, param, to_torch, _ in entries:
@@ -124,7 +131,7 @@ def _export(entries) -> Tree:
 
 def load_wm(nets: WMNets, tree: Tree) -> None:
     """Copy a flax ``wm`` tree into ``nets`` and make the kernel layouts."""
-    _load(_wm_entries(nets), tree, skip=DEFERRED_WM_KEYS)
+    _load(_wm_entries(nets), tree)
     nets.prepare_kernels()
 
 
@@ -133,7 +140,7 @@ def load_actor(actor: Actor, tree: Tree) -> None:
 
 
 def export_wm(nets: WMNets) -> Tree:
-    """The ported ``wm`` subtrees as a flax-layout tree of float32 arrays."""
+    """The ``wm`` tree in the flax layout, float32 arrays."""
     return _export(_wm_entries(nets))
 
 
@@ -181,6 +188,23 @@ def _optimizers(state):
             (state.critic_opt, state.critic, list(_critic_entries(state.critic))))
 
 
+def _load_adam(opt, module: nn.Module, entries, jax_opt) -> None:
+    """An optax ``clip_by_global_norm`` -> ``adamw`` chain state into the
+    port's ``AdamState`` of ``module``."""
+    adam = _adam_of(jax_opt)
+    if adam is None:
+        raise KeyError("no (count, mu, nu) Adam state in the optimizer state")
+    _load(_moment_entries(entries, module, opt.mu), adam.mu)
+    _load(_moment_entries(entries, module, opt.nu), adam.nu)
+    opt.count.fill_(int(np.asarray(adam.count)))
+
+
+def _export_adam(opt, module: nn.Module, entries) -> Dict[str, object]:
+    return {"count": int(opt.count),
+            "mu": _export(_moment_entries(entries, module, opt.mu)),
+            "nu": _export(_moment_entries(entries, module, opt.nu))}
+
+
 def load_ac_state(state, jax_state) -> None:
     """Copy a JAX ``ACTrainState`` (``dreamer_tpu/train/state.py:20-26``),
     given with numpy leaves (``jax.tree.map(np.asarray, ...)``), into the
@@ -192,12 +216,7 @@ def load_ac_state(state, jax_state) -> None:
     load_critic(state.target_critic, jax_state.target_critic_params)
     for (opt, module, entries), jax_opt in zip(_optimizers(state),
                                                (jax_state.actor_opt, jax_state.critic_opt)):
-        adam = _adam_of(jax_opt)
-        if adam is None:
-            raise KeyError("no (count, mu, nu) Adam state in the optimizer state")
-        _load(_moment_entries(entries, module, opt.mu), adam.mu)
-        _load(_moment_entries(entries, module, opt.nu), adam.nu)
-        opt.count.fill_(int(np.asarray(adam.count)))
+        _load_adam(opt, module, entries, jax_opt)
     state.s_scale.fill_(float(np.asarray(jax_state.s_scale)))
 
 
@@ -205,11 +224,35 @@ def export_ac_state(state) -> Dict[str, object]:
     """The port's ``ACTrainState`` as numpy in the JAX layout:
     ``{"actor_params", "critic_params", "target_critic_params": trees,
     "actor_opt", "critic_opt": {"count", "mu", "nu"}, "s_scale"}``."""
-    opts = [{"count": int(opt.count),
-             "mu": _export(_moment_entries(entries, module, opt.mu)),
-             "nu": _export(_moment_entries(entries, module, opt.nu))}
-            for opt, module, entries in _optimizers(state)]
+    opts = [_export_adam(opt, module, entries) for opt, module, entries in _optimizers(state)]
     return {"actor_params": export_actor(state.actor),
             "critic_params": export_critic(state.critic),
             "target_critic_params": export_critic(state.target_critic),
             "actor_opt": opts[0], "critic_opt": opts[1], "s_scale": float(state.s_scale)}
+
+
+# --------------------------------------------------------------------------- #
+# A whole training state
+# --------------------------------------------------------------------------- #
+
+
+def load_dreamer_state(state, jax_state) -> None:
+    """Copy a JAX ``DreamerState`` (``dreamer_tpu/train/state.py:29-33``) with
+    numpy leaves into the port's ``train.state.DreamerState``: the world
+    model's parameters and AdamW state (and its kernel layouts made), the
+    actor-critic state, and the step."""
+    nets = state.wm.nets
+    load_wm(nets, jax_state.wm.params)
+    _load_adam(state.wm.opt, nets, list(_wm_entries(nets)), jax_state.wm.opt_state)
+    load_ac_state(state.ac, jax_state.ac)
+    state.step.fill_(int(np.asarray(jax_state.step)))
+
+
+def export_dreamer_state(state) -> Dict[str, object]:
+    """The port's ``DreamerState`` as numpy in the JAX layout: ``{"wm":
+    {"params": tree, "opt": {"count", "mu", "nu"}}, "ac": export_ac_state,
+    "step"}``."""
+    nets = state.wm.nets
+    return {"wm": {"params": export_wm(nets),
+                   "opt": _export_adam(state.wm.opt, nets, list(_wm_entries(nets)))},
+            "ac": export_ac_state(state.ac), "step": int(state.step)}

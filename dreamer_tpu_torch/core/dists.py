@@ -38,6 +38,15 @@ def sample_onehot_ste(probs: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor
     return onehot + probs - probs.detach()
 
 
+def categorical_kl(logits_p: torch.Tensor, logits_q: torch.Tensor) -> torch.Tensor:
+    """KL(P || Q) over the last axis from raw logits, in float32
+    (``dists.py:46-55``): on the logits themselves, not on the unimixed
+    probabilities."""
+    lp = F.log_softmax(logits_p.float(), dim=-1)
+    lq = F.log_softmax(logits_q.float(), dim=-1)
+    return torch.sum(torch.exp(lp) * (lp - lq), dim=-1)
+
+
 def sample_gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard gumbel noise ``-log(-log(u))`` with u in (0, 1), float32."""
     tiny = torch.finfo(torch.float32).tiny

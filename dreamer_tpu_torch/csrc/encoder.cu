@@ -4,19 +4,23 @@
 // Replaces: dreamer_tpu/ops/conv_pallas.py, encoder_forward (kernels
 // _encoder_kernel and _conv_k4s2p1).
 //
-//   x = u8 / 255 - 0.5, rounded to bf16
+//   x = norm[u8], a 256-entry bf16 table of the normalised pixel value
 //   4 x [conv k4 / s2 / p1 + bias, SiLU], channels 3 -> c1 -> c2 -> c3 -> c4
 //   out = x flattened in (h, w, c) order, bf16
 //
-// Products accumulate in f32; bias and SiLU are applied in f32 and each
-// layer's output is rounded to bf16 once, as in _conv_k4s2p1.
+// The table is an operand because the paths normalise differently: serving
+// rounds u / 255 - 0.5 to bf16 once, as the TPU kernel does; the training
+// paths round u / 255 and then the difference, as the JAX package's losses
+// compute it in bf16 (ops/conv_cuda.py norm_table).  Products accumulate in
+// f32; bias and SiLU are applied in f32 and each layer's output is rounded to
+// bf16 once, as in _conv_k4s2p1.
 //
 // What bounds it on an H100: operations.  A 64x64x3 frame at the flagship
 // widths (32, 64, 128, 256) costs 53.5 MFLOP and moves 12 KB in and 8 KB out,
 // some 2,600 FLOP per byte, far above the card's 295 FLOP/B balance point.
 //
-// Design: one block per frame.  The block stages its frame in shared memory,
-// normalised, and runs the four layers with every intermediate in shared
+// Design: one block per frame.  The block reads the table into shared memory,
+// stages its frame there through it, and runs the four layers with every intermediate in shared
 // memory, ping-ponging between two buffers (at the flagship sizes 32 KB and
 // 64 KB, the larger being the 32x32x32 output of layer 0; more than 48 KB of
 // dynamic shared memory needs cudaFuncSetAttribute before the launch).  Only
@@ -92,6 +96,7 @@ __device__ void conv_k4s2p1_silu(const __nv_bfloat16* in, int H, int W, int C,
 
 __global__ void __launch_bounds__(kThreads)
 encoder_kernel(const uint8_t* __restrict__ obs,  // (N, H, W, 3)
+               const __nv_bfloat16* __restrict__ norm,  // (256,)
                int H, int W, size_t a_elems,
                const __nv_bfloat16* __restrict__ w0, const float* __restrict__ b0, int c1,
                const __nv_bfloat16* __restrict__ w1, const float* __restrict__ b1, int c2,
@@ -99,13 +104,14 @@ encoder_kernel(const uint8_t* __restrict__ obs,  // (N, H, W, 3)
                const __nv_bfloat16* __restrict__ w3, const float* __restrict__ b3, int c4,
                __nv_bfloat16* __restrict__ out) {  // (N, H/16 * W/16 * c4)
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __nv_bfloat16 lut[256];
   __nv_bfloat16* buf_a = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* buf_b = buf_a + a_elems;
   const int n = blockIdx.x;
   const uint8_t* frame = obs + (size_t)n * H * W * 3;
-  for (int i = threadIdx.x; i < H * W * 3; i += blockDim.x) {
-    buf_a[i] = __float2bfloat16((float)frame[i] / 255.0f - 0.5f);
-  }
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = norm[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < H * W * 3; i += blockDim.x) buf_a[i] = lut[frame[i]];
   __syncthreads();
   conv_k4s2p1_silu(buf_a, H, W, 3, w0, b0, c1, buf_b);
   __syncthreads();
@@ -121,12 +127,13 @@ size_t round8(size_t v) { return (v + 7) / 8 * 8; }
 
 }  // namespace
 
-// obs (N, H, W, 3) u8 with H, W multiples of 16; w_l (4, 4, C_l, C_l+1) bf16
-// (HWIO); b_l (C_l+1,) f32; out (N, H/16 * W/16 * c4) bf16.
+// obs (N, H, W, 3) u8 with H, W multiples of 16; norm (256,) bf16; w_l (4, 4,
+// C_l, C_l+1) bf16 (HWIO); b_l (C_l+1,) f32; out (N, H/16 * W/16 * c4) bf16.
 // Returns cudaGetLastError() after the launch.
-extern "C" int dt_encoder_forward(const void* obs, const void* w0, const void* b0,
-                                  const void* w1, const void* b1, const void* w2,
-                                  const void* b2, const void* w3, const void* b3,
+extern "C" int dt_encoder_forward(const void* obs, const void* norm, const void* w0,
+                                  const void* b0, const void* w1, const void* b1,
+                                  const void* w2, const void* b2, const void* w3,
+                                  const void* b3,
                                   void* out, int N, int H, int W, int c1, int c2,
                                   int c3, int c4, void* stream) {
   // buf_a holds the frame, then layer 1's output; buf_b layer 0's, then layer 2's.
@@ -140,7 +147,8 @@ extern "C" int dt_encoder_forward(const void* obs, const void* w0, const void* b
     if (err != cudaSuccess) return (int)err;
   }
   encoder_kernel<<<N, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(obs), H, W, a_elems,
+      static_cast<const uint8_t*>(obs), static_cast<const __nv_bfloat16*>(norm), H, W,
+      a_elems,
       static_cast<const __nv_bfloat16*>(w0), static_cast<const float*>(b0), c1,
       static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1), c2,
       static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2), c3,

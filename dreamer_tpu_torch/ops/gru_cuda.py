@@ -54,19 +54,26 @@ def gru_kernel_layout(wi: torch.Tensor, wh: torch.Tensor, bi: torch.Tensor,
     return rows(wi), rows(wh), bi.to(dtype).float(), bh.to(dtype).float()
 
 
-def gru_cell_plain(x, h, wi_t, wh_t, bi, bh) -> torch.Tensor:
-    """Two matmuls and the gate math, in float32 on the given operands (same
-    arguments and arithmetic as the kernel); returns ``x.dtype``."""
-    I, H = x.shape[1], h.shape[1]
+def gate_math(x, h, wi_t, wh_t, bi, bh):
+    """The GRU step in float32 on the kernel's operands: returns (out, r, z,
+    n, hn), with hn = h W_hn + b_hn the hidden part of the n gate
+    (``gru_pallas._gate_math``)."""
+    I, H = x.shape[-1], h.shape[-1]
     hf = h.float()
     gi = x.float() @ wi_t[:, :I].float().t() + bi
     gh = hf @ wh_t[:, :H].float().t() + bh
     i_r, i_z, i_n = gi.split(H, dim=-1)
-    h_r, h_z, h_n = gh.split(H, dim=-1)
+    h_r, h_z, hn = gh.split(H, dim=-1)
     r = torch.sigmoid(i_r + h_r)
     z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
-    return ((1.0 - z) * n + z * hf).to(x.dtype)
+    n = torch.tanh(i_n + r * hn)
+    return (1.0 - z) * n + z * hf, r, z, n, hn
+
+
+def gru_cell_plain(x, h, wi_t, wh_t, bi, bh) -> torch.Tensor:
+    """Two matmuls and the gate math, in float32 on the given operands (same
+    arguments and arithmetic as the kernel); returns ``x.dtype``."""
+    return gate_math(x, h, wi_t, wh_t, bi, bh)[0].to(x.dtype)
 
 
 def _check(x, h, wi_t, wh_t, bi, bh) -> None:

@@ -17,8 +17,8 @@ imagination part of ``dreamer_tpu/ops/fused_scans.py:171-356``).
   then one (T*B)-flattened contraction of the layer's recorded inputs with
   its tap cotangents, and the LayerNorm scale/bias gradients come from the
   recomputed normalised inputs.  Only the gradients that
-  ``ctx.needs_input_grad`` asks for are computed: in the actor-critic update
-  the world model is frozen, so that is the actor's.
+  ``ctx.needs_input_grad`` asks for are computed: the actor-critic update
+  hands in the world model's parameters detached, so that is the actor's.
 
 In JAX this backward is plain XLA, not a Pallas kernel; the recompute in
 plain PyTorch here is therefore the port of that backward, not a plain
@@ -131,14 +131,18 @@ def _or_zeros(g, like):
 
 
 def imagine_scan(actor, nets, h0: torch.Tensor, z0: torch.Tensor, eps: torch.Tensor,
-                 gum: torch.Tensor, unimix: float, min_std: float):
+                 gum: torch.Tensor, unimix: float, min_std: float, wm_grad: bool = True):
     """The T-step imagination of ``actor`` in the world model ``nets``,
-    differentiable in the actor's and the world model's parameters and in
-    (h0, z0).  eps (T, B, A) and gum (T, B, rows, classes) are the noise.
+    differentiable in the actor's parameters, in the world model's unless
+    ``wm_grad`` is False, and in (h0, z0).  eps (T, B, A) and gum (T, B,
+    rows, classes) are the noise.
     Returns (h_fin, z_fin, h_seq, z_seq, a_seq, mu_seq, sig_seq), time-major,
     float32, with h_seq[t] the pre-step state."""
     weights = (*actor.imagine_weights(), *nets.imagine_weights())
+    params = scan_params(actor, nets)
+    if not wm_grad:
+        params = params[:12] + [p.detach() for p in params[12:]]
     return _ImagineScan.apply(weights, unimix, min_std, h0.float().contiguous(),
                               z0.float().contiguous(), eps.float().contiguous(),
-                              gum.float().contiguous(), *scan_params(actor, nets))
+                              gum.float().contiguous(), *params)
 

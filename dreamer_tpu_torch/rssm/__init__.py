@@ -1,3 +1,3 @@
-from dreamer_tpu_torch.rssm.rssm import RSSM, ImaginedTrajectory
+from dreamer_tpu_torch.rssm.rssm import RSSM, ImaginedTrajectory, ObservedSequence
 
-__all__ = ["RSSM", "ImaginedTrajectory"]
+__all__ = ["RSSM", "ImaginedTrajectory", "ObservedSequence"]

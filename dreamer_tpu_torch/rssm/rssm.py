@@ -1,12 +1,15 @@
 """The RSSM (``dreamer_tpu/rssm/rssm.py``): the single-step functions of the
-serving path, the heads, and the warm start and imagination of the
-actor-critic update.
+serving path, the heads and the decoder, the posterior scan of the
+world-model update, and the warm start and imagination of the actor-critic
+update.
 
 State convention, as in JAX: ``h`` is the GRU state (B, hidden_dim) and ``z``
 the flattened straight-through one-hot latent (B, rows*classes), both float32
 at these functions' boundaries while the nets compute in the compute dtype.
 Sampling takes gumbel noise of shape (..., rows, classes) instead of a key.
-The posterior scan of the world-model update comes with the next slice.
+The training paths (``observe_sequence``, ``warm_start``) normalise frames as
+the JAX losses do, in the compute dtype (``conv_cuda.norm_table("train")``);
+serving as the JAX policy programs do.
 """
 
 from __future__ import annotations
@@ -20,6 +23,15 @@ from dreamer_tpu_torch.core.dists import sample_onehot_ste, unimix_probs
 from dreamer_tpu_torch.core.math import bucket_values, twohot_expectation
 from dreamer_tpu_torch.nets.wm_nets import WMNets
 from dreamer_tpu_torch.ops.imagine_scan import imagine_scan
+from dreamer_tpu_torch.ops.observe_scan import observe_scan, observe_scan_reset
+
+
+class ObservedSequence(NamedTuple):
+    """The posterior unroll, batch-major (``rssm.py:31-36``)."""
+
+    h: torch.Tensor            # (B, T, hidden) float32, post-step states
+    z: torch.Tensor            # (B, T, rows*classes) straight-through samples
+    post_logits: torch.Tensor  # (B, T, rows, classes) compute dtype
 
 
 class ImaginedTrajectory(NamedTuple):
@@ -45,8 +57,8 @@ class RSSM:
         self.cfg = cfg
         self.nets = WMNets(cfg, action_dim, dtype, generator)
 
-    def encode_obs(self, obs_u8: torch.Tensor) -> torch.Tensor:
-        return self.nets.encode_obs(obs_u8)
+    def encode_obs(self, obs_u8: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.nets.encode_obs(obs_u8, train)
 
     def posterior_logits(self, feat: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return self.nets.posterior_logits(feat, h)
@@ -86,6 +98,15 @@ class RSSM:
     def prior_logits(self, h: torch.Tensor) -> torch.Tensor:
         return self.nets.prior_logits(h)
 
+    def reward_logits(self, h: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
+        return self.nets.reward_logits(h, z_flat)
+
+    def cont_logit(self, h: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
+        return self.nets.cont_logit(h, z_flat)
+
+    def decode(self, h: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
+        return self.nets.decode(h, z_flat)
+
     def reward_pred(self, h: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
         """symexp(E[twohot]) of the reward head."""
         logits = self.nets.reward_logits(h, z_flat)
@@ -95,6 +116,35 @@ class RSSM:
     def cont_pred(self, h: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
         """Continue probability, not thresholded."""
         return torch.sigmoid(self.nets.cont_logit(h, z_flat).float()).squeeze(-1)
+
+    # ------------------------------------------------------------------ #
+    # The world-model update's scan
+    # ------------------------------------------------------------------ #
+
+    def observe_sequence(self, obs_u8: torch.Tensor, actions: torch.Tensor,
+                         gumbel: torch.Tensor, is_first: Optional[torch.Tensor] = None
+                         ) -> ObservedSequence:
+        """Open-loop posterior unroll over T steps from the zero state
+        (``rssm.py:189-299``): step t consumes action[t-1] (zeros at t = 0)
+        and obs[t], the GRU running at every step.  One encoder call covers
+        all B*T frames; the scan is ``ops.observe_scan``, differentiable in
+        the encoder, GRU and posterior-head parameters.
+
+        obs_u8 (B, T, H, W, 3) uint8; actions (B, T, A); gumbel (T, B, rows,
+        classes); ``is_first`` (B, T) zeroes h, z and the incoming action
+        before the steps where it is 1 (``observe_scan_reset``)."""
+        B = obs_u8.shape[0]
+        feats = self.encode_obs(obs_u8, train=True).transpose(0, 1)
+        a_in = torch.cat([torch.zeros_like(actions[:, :1]), actions[:, :-1]], dim=1)
+        a_in = a_in.transpose(0, 1)
+        h0 = torch.zeros(B, self.cfg.hidden_dim, device=obs_u8.device)
+        z0 = torch.zeros(B, self.cfg.latent_dim, device=obs_u8.device)
+        if is_first is None:
+            out = observe_scan(self.nets, h0, z0, feats, a_in, gumbel)
+        else:
+            out = observe_scan_reset(self.nets, h0, z0, feats, a_in, gumbel,
+                                     is_first.transpose(0, 1))
+        return ObservedSequence(*(v.transpose(0, 1) for v in out))
 
     # ------------------------------------------------------------------ #
     # The actor-critic update's scans
@@ -111,7 +161,7 @@ class RSSM:
         rows, classes); ``is_first`` (B, Tw) zeroes h, z and the incoming
         action where a window crosses an episode start.  Returns (z, h)."""
         B, Tw = obs_u8.shape[:2]
-        feats = self.encode_obs(obs_u8)
+        feats = self.encode_obs(obs_u8, train=True)
         h = torch.zeros(B, self.cfg.hidden_dim, device=obs_u8.device)
         z = self._sample(self.posterior_logits(feats[:, 0], h), gumbel[0])
         for t in range(1, Tw):
@@ -127,9 +177,11 @@ class RSSM:
                 gum: torch.Tensor, min_std: float) -> ImaginedTrajectory:
         """The H-step dream of ``actor`` from (z0, h0) through
         ``ops.imagine_scan`` (the whole-rollout kernel on the card),
-        differentiable in the actor's parameters.  eps (H, B, A), gum (H, B,
-        rows, classes)."""
-        out = imagine_scan(actor, self.nets, h0, z0, eps, gum, self.cfg.unimix, min_std)
+        differentiable in the actor's parameters only: the actor-critic
+        update takes no world-model gradient, so the world model's enter
+        detached.  eps (H, B, A), gum (H, B, rows, classes)."""
+        out = imagine_scan(actor, self.nets, h0, z0, eps, gum, self.cfg.unimix, min_std,
+                           wm_grad=False)
         return self._assemble_trajectory(*out)
 
     def _assemble_trajectory(self, h_fin, z_fin, h_seq, z_seq, a_seq, mu_seq, sig_seq

@@ -1,4 +1,4 @@
-"""Training state of the actor-critic half (``dreamer_tpu/train/state.py:20-26``).
+"""Training state (``dreamer_tpu/train/state.py:16-33``).
 
 JAX keeps an immutable pytree; the port keeps the modules themselves and
 their optimizer states, and the update writes them in place (through a
@@ -40,3 +40,16 @@ class ACTrainState:
     actor_opt: AdamState
     critic_opt: AdamState
     s_scale: torch.Tensor      # () f32 return-normalisation EMA
+
+
+@dataclass
+class WMTrainState:
+    nets: nn.Module            # the world model (``WMNets``), updated in place
+    opt: AdamState
+
+
+@dataclass
+class DreamerState:
+    wm: WMTrainState
+    ac: ACTrainState
+    step: torch.Tensor         # () int32 global training iteration

@@ -1,14 +1,14 @@
 """The programs of ``dreamer_tpu/train/step.py``: ``Policy``, the per-env-step
 act/observe calls of rollout and eval, batched over N envs (``:194-247``);
-and ``Trainer``, the learner, of which the actor-critic half ``ac_step``
-(``:151-178``) is ported so far.
+and ``Trainer``, the learner: ``wm_step`` (``:131-149``), ``ac_step``
+(``:151-178``) and the whole iteration ``train_iteration`` (``:180-188``).
 
 Both hold the world-model nets (through ``RSSM``) and draw their noise from
-the caller's ``torch.Generator`` (``sample_noise``, ``sample_ac_noise``);
-tests pass the noise JAX draws instead.  On a CUDA device the encoder, the
-GRU cell and the imagination run as the hand-written kernels of
-``dreamer_tpu_torch.ops``; those take bfloat16, so the card needs
-``runtime.compute_dtype: bfloat16``.
+the caller's ``torch.Generator`` (``sample_noise``, ``sample_wm_noise``,
+``sample_ac_noise``); tests pass the noise JAX draws instead.  On a CUDA
+device the encoder, the GRU cell, the whole-scan GRU and the imagination run
+as the hand-written kernels of ``dreamer_tpu_torch.ops``; those take
+bfloat16, so the card needs ``runtime.compute_dtype: bfloat16``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from dreamer_tpu_torch.nets.actor_critic import Actor, Critic
 from dreamer_tpu_torch.replay.buffer import ReplayBuffer, ReplayState
 from dreamer_tpu_torch.rssm.rssm import RSSM
 from dreamer_tpu_torch.train.agent import ACNoise, AgentTrainer
-from dreamer_tpu_torch.train.state import ACTrainState, AdamState
+from dreamer_tpu_torch.train.state import ACTrainState, AdamState, DreamerState, WMTrainState
+from dreamer_tpu_torch.train.world_model import make_wm_optimizer, wm_update
 
 Tensor = torch.Tensor
 
@@ -119,8 +120,8 @@ class Policy:
 
 
 class Trainer:
-    """The learner.  The world model (``self.rssm``) is held fixed in this
-    slice: its update comes with the next one."""
+    """The learner: the world model (``self.rssm.nets``, which the state's
+    ``wm.nets`` is) and the actor-critic, each updated in place."""
 
     def __init__(self, cfg: DreamerConfig, device=None, seed: int = 0):
         """Build the world-model nets at ``cfg``'s widths with weights drawn
@@ -131,18 +132,20 @@ class Trainer:
         self.seed = seed
         gen = torch.Generator().manual_seed(seed)
         self.rssm = RSSM(cfg.wm, cfg.env.action_dim, self.dtype, gen)
-        self.rssm.nets.requires_grad_(False).to(self.device)
+        self.rssm.nets.to(self.device)
         self.rssm.nets.prepare_kernels()
         self.agent = AgentTrainer(cfg)
+        self.wm_opt = make_wm_optimizer(cfg)
         self.buffer = ReplayBuffer(cfg.train.buffer_size, cfg.train.sequence_length,
                                    cfg.env.action_dim, cfg.wm.obs_size,
                                    num_envs=cfg.env.num_envs,
                                    store_firsts=cfg.env.next_step_autoreset)
 
-    def init_state(self) -> ACTrainState:
-        """The actor-critic state: actor and critic drawn from the trainer's
-        seed + 1 (on the CPU), the target critic a copy of the critic, fresh
-        AdamW states and ``s_scale = 1``."""
+    def init_state(self) -> DreamerState:
+        """The whole training state (``step.py:85-104``): the world model with
+        a fresh AdamW state; actor and critic drawn from the trainer's seed +
+        1 (on the CPU), the target critic a copy of the critic, fresh AdamW
+        states and ``s_scale = 1``; step 0."""
         cfg, a = self.cfg, self.cfg.agent
         gen = torch.Generator().manual_seed(self.seed + 1)
         in_dim = cfg.wm.hidden_dim + cfg.wm.latent_dim
@@ -151,10 +154,20 @@ class Trainer:
         critic = Critic(in_dim, a.critic_buckets, a.critic_hidden_1, a.critic_hidden_2,
                         self.dtype, gen).to(self.device)
         target = copy.deepcopy(critic).requires_grad_(False)
-        return ACTrainState(actor=actor, critic=critic, target_critic=target,
-                            actor_opt=AdamState.zeros_like(actor),
-                            critic_opt=AdamState.zeros_like(critic),
-                            s_scale=torch.ones((), device=self.device))
+        ac = ACTrainState(actor=actor, critic=critic, target_critic=target,
+                          actor_opt=AdamState.zeros_like(actor),
+                          critic_opt=AdamState.zeros_like(critic),
+                          s_scale=torch.ones((), device=self.device))
+        wm = WMTrainState(nets=self.rssm.nets, opt=AdamState.zeros_like(self.rssm.nets))
+        return DreamerState(wm=wm, ac=ac,
+                            step=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    def sample_wm_noise(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """One world-model update's noise on the trainer's device: the
+        posterior scan's gumbels (horizon, B, rows, classes)."""
+        c = self.cfg.wm
+        return sample_gumbel((self.cfg.train.horizon, batch_size, c.latent_rows,
+                              c.latent_classes), generator, self.device)
 
     def sample_ac_noise(self, batch_size: int, generator: torch.Generator) -> ACNoise:
         """One update's noise on the trainer's device."""
@@ -166,9 +179,28 @@ class Trainer:
                             generator=generator, device=self.device),
             gum=sample_gumbel((t.horizon, *lat), generator, self.device))
 
-    def ac_step(self, state: ACTrainState, ring: ReplayState, generator: torch.Generator,
+    def wm_step(self, state: DreamerState, ring: ReplayState, generator: torch.Generator
+                ) -> Tuple[DreamerState, Dict[str, torch.Tensor]]:
+        """``train.wm_epochs`` world-model updates, each on a fresh sample of
+        the first ``horizon`` steps of B windows with its own noise; the
+        metrics are the last epoch's, with every epoch's loss as
+        ``wm/loss_epochs`` (``step.py:131-149``).  The indices and the noise
+        come from ``generator``, which must live on the trainer's device."""
+        cfg = self.cfg
+        per_epoch = []
+        for _ in range(cfg.train.wm_epochs):
+            batch = self.buffer.sample(ring, cfg.train.batch_size, generator,
+                                       t_out=cfg.train.horizon)
+            gumbel = self.sample_wm_noise(cfg.train.batch_size, generator)
+            _, metrics = wm_update(self.rssm, self.wm_opt, state.wm, batch, gumbel, cfg)
+            per_epoch.append(metrics)
+        metrics = dict(per_epoch[-1])
+        metrics["wm/loss_epochs"] = torch.stack([m["wm/loss"] for m in per_epoch])
+        return state, metrics
+
+    def ac_step(self, state: DreamerState, ring: ReplayState, generator: torch.Generator,
                 nu: Optional[torch.Tensor] = None
-                ) -> Tuple[ACTrainState, Dict[str, torch.Tensor]]:
+                ) -> Tuple[DreamerState, Dict[str, torch.Tensor]]:
         """``train.ac_epochs`` actor-critic updates, each on a fresh sample of
         the first ``sequence_length // 2`` steps of B windows (the warm
         start's), with the metrics averaged over the epochs as ``_ac_step``
@@ -182,6 +214,16 @@ class Trainer:
                                        t_out=cfg.train.sequence_length // 2,
                                        with_scalars=with_scalars)
             noise = self.sample_ac_noise(cfg.train.batch_size, generator)
-            state, metrics = self.agent.ac_update(state, self.rssm, batch, noise, nu)
+            _, metrics = self.agent.ac_update(state.ac, self.rssm, batch, noise, nu)
             per_epoch.append(metrics)
         return state, {k: torch.stack([m[k] for m in per_epoch]).mean() for k in per_epoch[0]}
+
+    def train_iteration(self, state: DreamerState, ring: ReplayState,
+                        generator: torch.Generator, nu: Optional[torch.Tensor] = None
+                        ) -> Tuple[DreamerState, Dict[str, torch.Tensor]]:
+        """One learner iteration (``step.py:180-188``): ``wm_step``, then
+        ``ac_step`` on the updated world model, then ``step + 1``."""
+        state, wm_metrics = self.wm_step(state, ring, generator)
+        state, ac_metrics = self.ac_step(state, ring, generator, nu)
+        state.step += 1
+        return state, {**wm_metrics, **ac_metrics}

@@ -199,9 +199,9 @@ def test_analytic_entropy_conts_resets_and_a_traced_nu():
 
 
 def test_trainer_ac_step_on_the_cpu():
-    """``Trainer.ac_step``: two updates on fresh samples of a filled ring,
-    metrics averaged, the target moved by tau toward the critic, no kernel
-    launched on the CPU."""
+    """``Trainer.ac_step`` on a ``DreamerState``: two updates on fresh
+    samples of a filled ring, metrics averaged, the target moved by tau toward
+    the critic, no kernel launched on the CPU."""
     _, cfg = small_configs()
     trainer = Trainer(cfg, device="cpu", seed=0)
     state = trainer.init_state()
@@ -212,20 +212,23 @@ def test_trainer_ac_step_on_the_cpu():
         ring, torch.randint(0, 256, (1, n, *cfg.wm.obs_size, 3), dtype=torch.uint8, generator=g),
         torch.rand(1, n, A, generator=g) * 2 - 1, torch.randn(1, n, generator=g),
         torch.ones(1, n))
-    critic0 = [p.detach().clone() for p in state.critic.parameters()]
-    target0 = [p.detach().clone() for p in state.target_critic.parameters()]
+    ac = state.ac
+    critic0 = [p.detach().clone() for p in ac.critic.parameters()]
+    target0 = [p.detach().clone() for p in ac.target_critic.parameters()]
     assert all(torch.equal(a, b) for a, b in zip(critic0, target0))
     before = imagine_rollout.launches
     state, metrics = trainer.ac_step(state, ring, g)
     assert imagine_rollout.launches == before
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert float(metrics["ac/update_skipped"]) == 0.0
-    assert int(state.actor_opt.count) == int(state.critic_opt.count) == cfg.train.ac_epochs
-    assert float(state.s_scale) != 1.0
+    assert int(ac.actor_opt.count) == int(ac.critic_opt.count) == cfg.train.ac_epochs
+    assert float(ac.s_scale) != 1.0
     # After two soft updates from equal start: t2 = (1-tau)^2 c0 + tau (1-tau) c1 + tau c2,
     # so t2 lies strictly between c0 and the new critic, near c0.
     tau = cfg.agent.target_tau
-    for c0, c2, t2 in zip(critic0, state.critic.parameters(), state.target_critic.parameters()):
+    for c0, c2, t2 in zip(critic0, ac.critic.parameters(), ac.target_critic.parameters()):
         moved = (t2 - c0).abs().max()
         assert float(moved) <= 2 * tau * float((c2.detach() - c0).abs().max()) + 1e-7
-    assert any(not torch.equal(c0, c2) for c0, c2 in zip(critic0, state.critic.parameters()))
+    assert any(not torch.equal(c0, c2) for c0, c2 in zip(critic0, ac.critic.parameters()))
+    # The actor-critic half leaves the world model and the step as they were.
+    assert int(state.wm.opt.count) == 0 and int(state.step) == 0

@@ -1,9 +1,10 @@
-"""The parameter bridge: exact round trips (the world-model subtrees, actor,
-critic, and a whole actor-critic training state after a JAX update), the keys
-it refuses, and the committed flagship export
+"""The parameter bridge: exact round trips (the world model, decoder
+included, actor, critic, and a whole actor-critic training state after a JAX
+update; a whole ``DreamerState`` in tests/test_torch_train_iteration.py), the
+keys it refuses, and the committed flagship export
 (checkpoints/carracer_r3/agent_best) restored with the JAX package's own
-checkpoint code: its critic, target critic and world-model heads round-trip,
-and its policy is served by both packages.
+checkpoint code: it round-trips whole, world model, actor, critic and target
+critic, and its policy is served by both packages.
 
 The flagship comparison runs in float32 (the export's own dtype) so that the
 sampled latents match exactly; deterministic actions then agree to 1e-4 abs
@@ -22,11 +23,12 @@ from _torch_parity import (configs, f32, jax_ac_world, jax_params, port_ac_state
                            small_configs, t)
 from dreamer_tpu_torch import bridge
 from dreamer_tpu_torch.nets import Critic
-from dreamer_tpu_torch.train import Policy, PolicyNoise
+from dreamer_tpu_torch.train import Policy, PolicyNoise, Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED_WM_KEYS = {"enc_conv0", "enc_conv1", "enc_conv2", "enc_conv3", "posterior_head", "gru",
-                  "dyn_head", "reward_head", "cont_head"}
+                  "dyn_head", "reward_head", "cont_head", "upscaler_1", "upscaler_ln",
+                  "upscaler_2", "dec_conv0", "dec_conv1", "dec_conv2", "dec_conv3"}
 SMOKE = os.path.join(ROOT, "configs", "fake_smoke.yaml")
 FLAGSHIP = os.path.join(ROOT, "configs", "car_racer.yaml")
 AGENT_BEST = os.path.join(ROOT, "checkpoints", "carracer_r3", "agent_best")
@@ -51,9 +53,8 @@ def test_round_trip_is_exact(trees):
     cfg, wm, actor = trees
     nets, port_actor = port_nets(cfg, wm, actor)
     wm_back, actor_back = bridge.export_wm(nets), bridge.export_actor(port_actor)
-    ported = {k: v for k, v in wm.items() if k not in bridge.DEFERRED_WM_KEYS}
-    assert set(wm_back) == set(ported) == PORTED_WM_KEYS
-    for expect, got in ((ported, wm_back), (actor, actor_back)):
+    assert set(wm_back) == set(wm) == PORTED_WM_KEYS
+    for expect, got in ((wm, wm_back), (actor, actor_back)):
         want = dict(_leaves(expect))
         have = dict(_leaves(got))
         assert set(want) == set(have)
@@ -70,6 +71,9 @@ def test_layouts(trees):
     np.testing.assert_array_equal(f32(nets.posterior_head.denses[0].weight),
                                   wm["posterior_head"]["Dense_0"]["kernel"].T)
     np.testing.assert_array_equal(f32(port_actor.mu_head.weight), actor["mu_head"]["kernel"].T)
+    # ConvTranspose: (kh, kw, in, out) flipped in both spatial axes -> (in, out, kh, kw).
+    np.testing.assert_array_equal(f32(nets.dec_convs[2].weight),
+                                  wm["dec_conv2"]["kernel"][::-1, ::-1].transpose(2, 3, 0, 1))
     wi_t, wh_t, bi, bh = nets.gru.kernel_weights()
     H = cfg.wm.hidden_dim
     np.testing.assert_array_equal(f32(wi_t[H:2 * H, :wm["gru"]["kernel_i"].shape[0]]),
@@ -90,8 +94,10 @@ def test_kernel_layouts_are_made_at_load(trees):
 
 
 def test_deferred_keys_are_skipped_and_unknown_keys_raise(trees):
+    """No world-model key is deferred any more: every one has a port
+    parameter, and an unknown or missing key raises."""
     cfg, wm, actor = trees
-    assert set(bridge.DEFERRED_WM_KEYS) == set(wm) - PORTED_WM_KEYS
+    assert set(wm) == PORTED_WM_KEYS
     nets, port_actor = port_nets(cfg, wm, actor)
     bad = copy.deepcopy(wm)
     bad["mystery_head"] = {"kernel": np.zeros((2, 2), np.float32)}
@@ -131,6 +137,28 @@ def agent_best(tmp_path_factory):
     tree = CheckpointManager(str(tmp_path_factory.mktemp("ckpt"))).restore_numpy(
         AGENT_BEST, target)
     return jcfg, cfg, jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def test_flagship_agent_best_round_trips_whole(agent_best):
+    """Every tree of the export, the world model's decoder included, into the
+    port's modules and back, exactly."""
+    _, cfg, tree = agent_best
+    trainer_state = Trainer(cfg, device="cpu").init_state()
+    nets, ac = trainer_state.wm.nets, trainer_state.ac
+    bridge.load_wm(nets, tree["wm"])
+    bridge.load_actor(ac.actor, tree["actor"])
+    bridge.load_critic(ac.critic, tree["critic"])
+    bridge.load_critic(ac.target_critic, tree["target_critic"])
+    back = {"wm": bridge.export_wm(nets), "actor": bridge.export_actor(ac.actor),
+            "critic": bridge.export_critic(ac.critic),
+            "target_critic": bridge.export_critic(ac.target_critic)}
+    assert set(back["wm"]) == set(tree["wm"]) == PORTED_WM_KEYS
+    for name, sub in tree.items():
+        want, have = dict(_leaves(sub)), dict(_leaves(back[name]))
+        assert have.keys() == want.keys(), name
+        for path, v in want.items():
+            np.testing.assert_array_equal(have[path], v, err_msg=f"{name}/{'/'.join(path)}")
+    assert float(np.abs(tree["wm"]["dec_conv3"]["kernel"]).max()) > 0  # trained, not zeros
 
 
 def test_flagship_agent_best_critics_and_heads_round_trip(agent_best):

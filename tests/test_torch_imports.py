@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import nothing that the GPU machine lacks:
+"""The port, chip_smoke.py and chip_mutants.py import nothing that the GPU
+machine lacks:
 no JAX stack, PyYAML, gymnasium, OpenCV, nor the JAX package itself.  An
 ``ast`` scan of every import, matched on the top-level module name."""
 
@@ -13,7 +14,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "yaml", "gymnasium", "cv2", "dreamer_tpu"}
 FILES = sorted(glob.glob(os.path.join(ROOT, "dreamer_tpu_torch", "**", "*.py"),
-                         recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
+                         recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
+                                             os.path.join(ROOT, "chip_mutants.py")]
 
 
 def imported_top_levels(path):

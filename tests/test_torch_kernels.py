@@ -5,7 +5,9 @@ other device launches the kernel or raises, and the kernels' weight layouts.
 The tests marked ``cuda`` build and run the CUDA kernels; they skip without a
 card.  On the card: ``python -m pytest tests/test_torch_kernels.py -m cuda``.
 Tolerances there are each wrapper's ``tolerance`` (``ops.gru_cuda``: 2e-2
-abs/rel; ``ops.conv_cuda``: 2**-6 of the largest feature) or check
+abs/rel; ``ops.gru_scan_cuda``: 1e-3 abs/rel, and ``hold_scan``: a T-step
+launch reproduced bit for bit by its steps relaunched at T = 1;
+``ops.conv_cuda``: 2**-6 of the largest feature) or check
 (``ops.imagine_cuda.compare_step``: 2e-2 abs/rel on h', mu, sigma and the
 action, the same categories outside near ties; ``hold_rollout``: a whole
 rollout reproduced bit for bit by its steps relaunched), the same that
@@ -22,10 +24,11 @@ from dreamer_tpu_torch.nets.actor_critic import Actor
 from dreamer_tpu_torch.nets.gru import GRUCell
 from dreamer_tpu_torch.nets.layout import KernelLayout
 from dreamer_tpu_torch.nets.wm_nets import WMNets
-from dreamer_tpu_torch.ops import conv_cuda, cuda_build, gru_cuda, imagine_cuda
+from dreamer_tpu_torch.ops import conv_cuda, cuda_build, gru_cuda, gru_scan_cuda, imagine_cuda
 from dreamer_tpu_torch.ops.conv_cuda import (encoder_forward, encoder_forward_plain,
-                                             encoder_kernel_layout)
+                                             encoder_kernel_layout, norm_table)
 from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_cell_plain, gru_kernel_layout
+from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan, gru_scan_plain, hold_scan
 from dreamer_tpu_torch.ops.imagine_cuda import (dense_rows, imagine_rollout,
                                                 imagine_rollout_plain, imagine_step,
                                                 layer_operands)
@@ -41,7 +44,17 @@ def gru_operands(n=5, i=13, h=11, dtype=torch.float32, seed=0):
     return x.to(dtype), hh.to(dtype), cell.kernel_weights()
 
 
-def encoder_operands(n=3, size=32, filters=(4, 8), dtype=torch.float32, seed=0):
+def gru_scan_operands(t=4, n=5, i=13, h=11, dtype=torch.float32, seed=0):
+    """(xs, h0, the kernel layout) with the GRU cell's uniform init."""
+    g = torch.Generator().manual_seed(seed)
+    xs, h0 = torch.randn(t, n, i, generator=g), torch.randn(n, h, generator=g).clamp(-1, 1)
+    cell = GRUCell(i, h, dtype, g)
+    return xs.to(dtype), h0, cell.kernel_weights()
+
+
+def encoder_operands(n=3, size=32, filters=(4, 8), dtype=torch.float32, seed=0,
+                     rounding="serve"):
+    """(obs, HWIO weights, f32 biases, the normalisation table)."""
     g = torch.Generator().manual_seed(seed)
     cfg = DreamerConfig().wm
     cfg.obs_size, cfg.encoder_filters_1, cfg.encoder_filters_2 = (size, size), *filters
@@ -50,7 +63,7 @@ def encoder_operands(n=3, size=32, filters=(4, 8), dtype=torch.float32, seed=0):
         for c in nets.enc_convs:
             c.bias.copy_(0.1 * torch.randn(c.bias.shape, generator=g))
     obs = torch.randint(0, 256, (n, size, size, 3), dtype=torch.uint8, generator=g)
-    return obs, *nets.encoder_weights()
+    return obs, *nets.encoder_weights(), norm_table(rounding, dtype)
 
 
 def imagine_operands(shape, n=4, steps=6, dtype=torch.bfloat16, seed=0):
@@ -83,9 +96,10 @@ def imagine_operands(shape, n=4, steps=6, dtype=torch.bfloat16, seed=0):
 
 @pytest.fixture
 def no_launch_counted():
-    before = (gru_cell.launches, encoder_forward.launches, imagine_rollout.launches)
+    kernels = (gru_cell, gru_scan, encoder_forward, imagine_rollout)
+    before = [k.launches for k in kernels]
     yield
-    assert (gru_cell.launches, encoder_forward.launches, imagine_rollout.launches) == before
+    assert [k.launches for k in kernels] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -98,10 +112,23 @@ def test_gru_cell_on_cpu_is_the_plain_version(dtype, no_launch_counted):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_encoder_on_cpu_is_the_plain_version(dtype, no_launch_counted):
-    obs, ws, bs = encoder_operands(dtype=dtype)
-    out = encoder_forward(obs, ws, bs)
+    obs, ws, bs, table = encoder_operands(dtype=dtype)
+    out = encoder_forward(obs, ws, bs, table)
     assert out.dtype == dtype and out.shape == (3, 2 * 2 * 32)
-    assert torch.equal(out, encoder_forward_plain(obs, ws, bs))
+    assert torch.equal(out, encoder_forward_plain(obs, ws, bs, table))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_scan_on_cpu_is_the_plain_version(dtype, no_launch_counted):
+    xs, h0, ops = gru_scan_operands(dtype=dtype)
+    out = gru_scan(xs, h0, *ops)
+    assert [tuple(o.shape) for o in out] == [(4, 5, 11)] * 5
+    assert all(o.dtype == torch.float32 for o in out)
+    assert all(torch.equal(a, b) for a, b in zip(out, gru_scan_plain(xs, h0, *ops)))
+    # Its first step is the cell's gate math on the same operands.
+    ref = gru_cell_plain(xs[0], h0.to(dtype), *ops)
+    if dtype == torch.float32:
+        assert torch.allclose(out[0][0], ref, atol=1e-6)
 
 
 def test_gru_kernel_layout_pads_and_transposes():
@@ -184,8 +211,8 @@ def test_encoder_tolerance_fails_a_faulty_kernel(fault):
     """At the flagship widths, with the biases drawn as the card's checks draw
     them, the encoder's tolerance is below the features' rms, and a version
     that drops the biases, or one tap (ky = kx = 3) of every layer, fails it."""
-    obs, ws, bs = encoder_operands(2, 64, (32, 64), torch.bfloat16)
-    ref = encoder_forward_plain(obs, ws, bs)
+    obs, ws, bs, table = encoder_operands(2, 64, (32, 64), torch.bfloat16)
+    ref = encoder_forward_plain(obs, ws, bs, table)
     tol = conv_cuda.tolerance(ref)
     assert float(tol) < 0.5 * float(ref.float().square().mean().sqrt())
     if fault == "no_bias":
@@ -194,7 +221,8 @@ def test_encoder_tolerance_fails_a_faulty_kernel(fault):
         ws = [w.clone() for w in ws]
         for w in ws:
             w[3, 3] = 0
-    assert bool(((encoder_forward_plain(obs, ws, bs).float() - ref.float()).abs() > tol).any())
+    out = encoder_forward_plain(obs, ws, bs, table)
+    assert bool(((out.float() - ref.float()).abs() > tol).any())
 
 
 def test_kernel_layout_rebuilds_only_when_a_parameter_changes():
@@ -231,9 +259,10 @@ def test_gru_cell_rejects_bad_operands(case):
         gru_cell(x, h, wi_t, wh_t, bi, bh)
 
 
-@pytest.mark.parametrize("case", ["dtype", "channels", "size", "layers", "weight", "bias"])
+@pytest.mark.parametrize("case", ["dtype", "channels", "size", "layers", "weight", "bias",
+                                  "table"])
 def test_encoder_rejects_bad_operands(case):
-    obs, ws, bs = encoder_operands()
+    obs, ws, bs, table = encoder_operands()
     if case == "dtype":
         obs = obs.float()
     elif case == "channels":
@@ -244,10 +273,34 @@ def test_encoder_rejects_bad_operands(case):
         ws, bs = ws[:3], bs[:3]
     elif case == "weight":
         ws = [ws[0], ws[2], ws[1], ws[3]]
-    else:
+    elif case == "bias":
         bs = [b.double() for b in bs]
+    else:
+        table = table.to(torch.bfloat16)
     with pytest.raises((ValueError, TypeError)):
-        encoder_forward(obs, ws, bs)
+        encoder_forward(obs, ws, bs, table)
+
+
+@pytest.mark.parametrize("case", ["x_rank", "rows", "wi_shape", "h0_dtype", "mixed_dtype",
+                                  "noncontig", "no_steps"])
+def test_gru_scan_rejects_bad_operands(case):
+    xs, h0, (wi_t, wh_t, bi, bh) = gru_scan_operands()
+    if case == "x_rank":
+        xs = xs[0]
+    elif case == "rows":
+        h0 = h0[:-1]
+    elif case == "wi_shape":
+        wi_t = wi_t[:, :-8]
+    elif case == "h0_dtype":
+        h0 = h0.to(torch.bfloat16)
+    elif case == "mixed_dtype":
+        xs = xs.to(torch.bfloat16)
+    elif case == "noncontig":
+        xs = xs.transpose(0, 1).contiguous().transpose(0, 1)
+    else:
+        xs = xs[:0]
+    with pytest.raises((ValueError, TypeError)):
+        gru_scan(xs, h0, wi_t, wh_t, bi, bh)
 
 
 def test_off_the_cpu_the_wrappers_launch_or_raise(no_launch_counted):
@@ -257,9 +310,12 @@ def test_off_the_cpu_the_wrappers_launch_or_raise(no_launch_counted):
     meta = lambda ts: [t.to("meta") for t in ts]  # noqa: E731
     with pytest.raises(TypeError, match="kernel takes"):
         gru_cell(*meta([x, h, *ops]))
-    obs, ws, bs = encoder_operands()
+    obs, ws, bs, table = encoder_operands()
     with pytest.raises(TypeError, match="kernel takes"):
-        encoder_forward(obs.to("meta"), meta(ws), meta(bs))
+        encoder_forward(obs.to("meta"), meta(ws), meta(bs), table.to("meta"))
+    xs, h0, ops = gru_scan_operands()
+    with pytest.raises(TypeError, match="kernel takes"):
+        gru_scan(*meta([xs, h0, *ops]))
     h0, z0, eps, gum, w, _, _, unimix, min_std = imagine_operands("small")
     with pytest.raises(TypeError, match="kernel takes"):
         imagine_rollout(*meta([h0, z0, eps, gum]), meta(w), unimix, min_std)
@@ -267,8 +323,9 @@ def test_off_the_cpu_the_wrappers_launch_or_raise(no_launch_counted):
 
 def test_each_kernel_source_carries_its_note():
     srcs = {p.name: p.read_text() for p in cuda_build.sources()}
-    assert {"gru_cell.cu", "encoder.cu", "imagine.cu", "common.cu"} <= set(srcs)
+    assert {"gru_cell.cu", "gru_scan.cu", "encoder.cu", "imagine.cu", "common.cu"} <= set(srcs)
     for name, ref in (("gru_cell.cu", "dreamer_tpu/ops/gru_pallas.py"),
+                      ("gru_scan.cu", "dreamer_tpu/ops/gru_pallas.py"),
                       ("encoder.cu", "dreamer_tpu/ops/conv_pallas.py"),
                       ("imagine.cu", "dreamer_tpu/ops/imagine_pallas.py")):
         assert re.search(rf"Replaces: {re.escape(ref)}", srcs[name])
@@ -319,17 +376,49 @@ def test_gru_kernel_matches_plain_on_card(cuda, n, i, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ["serve", "train"])
 @pytest.mark.parametrize("n,size,filters", [(1, 64, (32, 64)), (50, 64, (32, 64)),
                                             (3, 64, (48, 96)),  # car_racer_64env.yaml
                                             (3, 32, (4, 8)), (2, 16, (8, 8))])
-def test_encoder_kernel_matches_plain_on_card(cuda, n, size, filters):
-    obs, ws, bs = encoder_operands(n, size, filters, torch.bfloat16)
-    obs, ws, bs = obs.to(cuda), [w.to(cuda) for w in ws], [b.to(cuda) for b in bs]
+def test_encoder_kernel_matches_plain_on_card(cuda, n, size, filters, rounding):
+    obs, ws, bs, table = encoder_operands(n, size, filters, torch.bfloat16, rounding=rounding)
+    obs, table = obs.to(cuda), table.to(cuda)
+    ws, bs = [w.to(cuda) for w in ws], [b.to(cuda) for b in bs]
     before = encoder_forward.launches
-    out = encoder_forward(obs, ws, bs)
+    out = encoder_forward(obs, ws, bs, table)
     torch.cuda.synchronize()
     assert encoder_forward.launches == before + 1
-    _close(out, encoder_forward_plain(obs, ws, bs), conv_cuda.tolerance)
+    _close(out, encoder_forward_plain(obs, ws, bs, table), conv_cuda.tolerance)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,i,h", [(30, 50, 1027, 600), (1, 1500, 1027, 600),
+                                     (5, 10, 37, 29), (3, 9, 67, 64)])
+def test_gru_scan_kernel_matches_plain_on_card(cuda, t, n, i, h):
+    """All five outputs within ``gru_scan_cuda.tolerance`` of the plain
+    version; a T-step launch reproduced bit for bit by its steps relaunched
+    at T = 1 from its own states (``hold_scan``)."""
+    xs, h0, ops = gru_scan_operands(t, n, i, h, torch.bfloat16)
+    xs, h0, ops = xs.to(cuda), h0.to(cuda), [o.to(cuda) for o in ops]
+    before = gru_scan.launches
+    out = gru_scan(xs, h0, *ops)
+    torch.cuda.synchronize()
+    assert gru_scan.launches == before + 1
+    stats = gru_scan_cuda.compare(out, gru_scan_plain(xs, h0, *ops))
+    assert stats["failures"] == [], stats
+    stats = hold_scan(out, xs, h0, ops)
+    assert stats["failures"] == [] and stats["carry_mismatches"] == 0, stats
+
+
+@pytest.mark.cuda
+def test_gru_scan_step_reproduces_the_cell_on_card(cuda):
+    """At T = 1 on a bf16-valued h the scan kernel sums as the cell kernel
+    does: its h' rounded to bf16 is the cell's output."""
+    xs, h0, ops = gru_scan_operands(1, 300, 1027, 600, torch.bfloat16)
+    xs, ops = xs.to(cuda), [o.to(cuda) for o in ops]
+    h16 = h0.to(cuda, torch.bfloat16)
+    out = gru_scan(xs, h16.float(), *ops)
+    assert torch.equal(out[0][0].to(torch.bfloat16), gru_cell(xs[0], h16, *ops))
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ from dreamer_tpu.ops.conv_pallas import encoder_forward as pallas_encoder_forwar
 from dreamer_tpu.ops.gru_pallas import gru_cell_pallas
 from dreamer_tpu_torch.nets.gru import gru_cell_core
 from dreamer_tpu_torch.nets.mlp import MLP, LayerNorm
-from dreamer_tpu_torch.ops.conv_cuda import encoder_forward_plain, encoder_kernel_layout
+from dreamer_tpu_torch.ops.conv_cuda import (encoder_forward_plain, encoder_kernel_layout,
+                                             norm_table)
 from dreamer_tpu_torch.ops.gru_cuda import gru_cell_plain, gru_kernel_layout
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -210,7 +211,9 @@ def test_encoder_plain_matches_pallas_interpret(setup, rng, n, block):
                                  block=block, interpret=True)
     pw, pb = encoder_kernel_layout([c.weight for c in nets.enc_convs],
                                    [c.bias for c in nets.enc_convs], DTYPES[dtype][1])
-    close(encoder_forward_plain(t(obs), pw, pb), ref, kernel_tol(dtype))
+    # The Pallas kernel normalises as serving does (conv_pallas.py:101-102).
+    table = norm_table("serve", DTYPES[dtype][1])
+    close(encoder_forward_plain(t(obs), pw, pb, table), ref, kernel_tol(dtype))
 
 
 def test_encoder_flattens_in_hwc_order(rng):
