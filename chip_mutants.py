@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""Show that the whole-scan GRU kernel's checks fail faulty kernels.
+"""Show that the kernels' checks fail faulty kernels.
 
     python3 chip_mutants.py
 
 Copies ``dreamer_tpu_torch`` into a temporary directory outside the checkout,
-writes two faulty versions of ``csrc/gru_scan.cu`` there, and runs the same
-checks that ``chip_smoke.py`` holds the kernel to (``gru_scan_cuda.compare``
-against the plain version, ``gru_scan_cuda.hold_scan`` for the carry) on the
-right kernel and on each faulty one, at the flagship T 30 x B 50 and at the
-world-model path's T 1 x B 1500:
+writes faulty versions of a kernel source there, and runs the checks that
+``chip_smoke.py`` holds that kernel to on the right kernel and on each faulty
+one.
+
+The whole-scan GRU (``csrc/gru_scan.cu``), held by ``gru_scan_cuda.compare``
+against the plain version and ``gru_scan_cuda.hold_scan`` for the carry, at
+the flagship T 30 x B 50 and at the world-model path's T 1 x B 1500:
 
 - ``carry``: h' is never written to the next step's state, so every step
   after the first starts from zero;
 - ``bias``: the hidden bias of the n gate (b_hn) is dropped.
 
-Exits non-zero unless the right kernel passes every check and each faulty one
+The conv encoder (``csrc/encoder.cu``), held by ``check_encoder``'s
+comparison (every feature within ``conv_cuda.tolerance`` of the plain
+version) at its six (frames, table) pairs, at the flagship widths with the
+biases drawn:
+
+- ``enc_kchunk``: layer 3 (the only layer whose input has 128 channels)
+  loads its last weight K-chunk as zeros, dropping those products;
+- ``enc_bias``: layer 2's bias (its input has 64 channels) is dropped.
+
+Exits non-zero unless the right kernels pass every check and each faulty one
 fails at least one.  Needs a CUDA device and nvcc; the checkout is not
 modified.
 """
@@ -29,12 +40,18 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# name: (source, the line to change, its faulty version)
 MUTANTS = {
-    "carry": ("          h_next[r * Hp + j] = out;\n", "          (void)out;\n"),
-    "bias": ("  const float b_hn = bh[2 * H + j];\n", "  const float b_hn = 0.0f;\n"),
+    "carry": ("gru_scan.cu", "          h_next[r * Hp + j] = out;\n", "          (void)out;\n"),
+    "bias": ("gru_scan.cu", "  const float b_hn = bh[2 * H + j];\n",
+             "  const float b_hn = 0.0f;\n"),
+    "enc_kchunk": ("encoder.cu", "      const bool ok = ci < p.C && n < p.Co;\n",
+                   "      const bool ok = ci < p.C && n < p.Co && !(p.Cs == 128 && kc == p.nkc - 1);\n"),
+    "enc_bias": ("encoder.cu", "  return n < p.Co ? __ldg(p.b + n) : 0.0f;\n",
+                 "  return n < p.Co && p.Cs != 64 ? __ldg(p.b + n) : 0.0f;\n"),
 }
 
-CHECK = r'''
+SCAN_CHECK = r'''
 import sys, torch
 from dreamer_tpu_torch.nets.gru import GRUCell
 from dreamer_tpu_torch.ops import gru_scan_cuda as gs
@@ -61,11 +78,44 @@ for T, B in ((30, 50), (1, 1500)):
 print(f"mutants: {name} checks failed {failed}", flush=True)
 '''
 
+ENCODER_CHECK = r'''
+import sys, torch
+from dreamer_tpu_torch.config import DreamerConfig
+from dreamer_tpu_torch.nets.wm_nets import WMNets
+from dreamer_tpu_torch.ops.conv_cuda import encoder_forward, encoder_forward_plain, tolerance
 
-def run(name: str, package_parent: Path) -> int:
-    """The number of failed checks of one kernel version."""
+name, failed = sys.argv[1], 0
+g = torch.Generator().manual_seed(2)
+c = DreamerConfig().wm
+c.obs_size, c.encoder_filters_1, c.encoder_filters_2 = (64, 64), 32, 64
+nets = WMNets(c, 3, torch.bfloat16, g)
+with torch.no_grad():  # the init leaves them zero; a dropped bias must show
+    for conv in nets.enc_convs:
+        conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=g))
+nets = nets.cuda()
+ws, bs = nets.encoder_weights()
+for n, rounding in ((1, "serve"), (50, "serve"), (64, "serve"), (1250, "train"),
+                    (1500, "serve"), (1500, "train")):
+    table = nets.serve_norm if rounding == "serve" else nets.train_norm
+    obs = torch.randint(0, 256, (n, 64, 64, 3), dtype=torch.uint8, generator=g).cuda()
+    out = encoder_forward(obs, ws, bs, table).float()
+    ref = encoder_forward_plain(obs, ws, bs, table).float()
+    err, tol = (out - ref).abs().max(), tolerance(ref)
+    bad = not bool(torch.isfinite(out).all()) or bool(err > tol)
+    failed += bad
+    print(f"mutants: {name} encoder N={n} ({rounding} table): max |kernel - plain| "
+          f"{float(err):.3e}, tolerance {float(tol):.3e} -> {'FAILS' if bad else 'passes'}",
+          flush=True)
+print(f"mutants: {name} checks failed {failed}", flush=True)
+'''
+CHECKS = {"gru_scan.cu": SCAN_CHECK, "encoder.cu": ENCODER_CHECK}
+
+
+def run(name: str, package_parent: Path, source: str) -> int:
+    """The number of failed checks of one version of the kernel in ``source``."""
     env = dict(os.environ, PYTHONPATH=str(package_parent))
-    out = subprocess.run([sys.executable, "-c", CHECK, name], env=env, cwd=package_parent,
+    out = subprocess.run([sys.executable, "-c", CHECKS[source], name], env=env,
+                         cwd=package_parent,
                          capture_output=True, text=True, timeout=600)
     sys.stdout.write(out.stdout)
     if out.returncode != 0:
@@ -83,20 +133,21 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout
     print(card.strip().splitlines()[0].strip(), flush=True)
-    failed = {"right": run("right", ROOT)}
+    right = {source: run(f"right {source}", ROOT, source) for source in CHECKS}
+    failed = {"right": sum(right.values())}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (good, bad) in MUTANTS.items():
+        for name, (source, good, bad) in MUTANTS.items():
             parent = Path(tmp) / name
             shutil.copytree(ROOT / "dreamer_tpu_torch", parent / "dreamer_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
-            src = parent / "dreamer_tpu_torch" / "csrc" / "gru_scan.cu"
+            src = parent / "dreamer_tpu_torch" / "csrc" / source
             text = src.read_text()
             if text.count(good) != 1:
-                raise RuntimeError(f"{name}: the line to change is not in gru_scan.cu once")
+                raise RuntimeError(f"{name}: the line to change is not in {source} once")
             src.write_text(text.replace(good, bad))
-            failed[name] = run(name, parent)
+            failed[name] = run(name, parent, source)
     ok = failed["right"] == 0 and all(failed[n] > 0 for n in MUTANTS)
-    print(f"mutants: right kernel failed {failed['right']} checks; faulty kernels failed "
+    print(f"mutants: right kernels failed {failed['right']} checks; faulty kernels failed "
           + ", ".join(f"{n} {failed[n]}" for n in MUTANTS)
           + f" -> {'held' if ok else 'NOT HELD'}", flush=True)
     return 0 if ok else 1

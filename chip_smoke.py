@@ -14,7 +14,11 @@ Phases, each printing its lines; any failure exits non-zero:
             T 1 x B 1500; encoder N = 1, 50, 64, the warm start's 1250 frames
             and the world-model update's 1500 under both normalisation
             tables), with its time beside the plain version's, one library
-            call's and the least time the card could take (its bound).
+            call's and the least time the card could take (its bound); for
+            the encoder also its blocks per launch at each N and the
+            tensor-core (HMMA) instructions of each instantiation in the
+            built library's SASS (cuobjdump), and cuDNN timed in NCHW and
+            channels_last, the faster kept as its library time.
 4. policy:  the serving path, Policy.policy_reset then policy_act_observe
             steps with a reset row partway, at the flagship widths of
             configs/car_racer.yaml (read by the port's own YAML reader) with
@@ -64,6 +68,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -315,14 +320,68 @@ def check_gru_scan(cfg, card: str) -> dict:
             "bound_ms_at_T30_B50": times[(T, B)]["bound_ms"]}
 
 
+def encoder_sass() -> dict:
+    """HMMA (and HGMMA) instructions in each instantiation of the encoder
+    kernel in the built library, read with the toolkit's cuobjdump -sass."""
+    from dreamer_tpu_torch.ops import cuda_build
+
+    cuobjdump = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(cuda_build.build())],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "encoder_conv_kernel" not in fn:
+                fn = None
+                continue
+            tiles = re.search(r"ILi(\d+)ELi(\d+)E", fn)
+            fn = f"MT={tiles.group(1)},NT={tiles.group(2)}" if tiles else fn
+            counts[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def device_ms(fn, kernel: str, per_call: int, reps: int = 10):
+    """Device time per call of ``fn`` of each of the ``per_call`` launches
+    of the kernels whose name holds ``kernel``, in launch order
+    (torch.profiler), or None if the profiler saw none: where back-to-back
+    calls are bound by the host's launches, CUDA events time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if len(events) != per_call * reps:
+        return None
+    return [sum(e.device_time_total for e in events[i::per_call]) / reps / 1e3
+            for i in range(per_call)]
+
+
 def check_encoder(cfg, card: str) -> dict:
+    """The encoder kernel at serving's 1, 50 and 64 frames and the learner's
+    1250 and 1500 against its plain version; times at 1, 64, 1250 and 1500
+    beside cuDNN's (NCHW and channels_last, the faster kept), the launch
+    geometry, and the tensor-core instructions in its SASS."""
     import torch
     import torch.nn.functional as F
 
     from dreamer_tpu_torch.nets.wm_nets import WMNets
     from dreamer_tpu_torch.ops.conv_cuda import (encoder_forward, encoder_forward_plain,
-                                                 tolerance)
+                                                 encoder_plan, tolerance)
 
+    hmma = encoder_sass()
+    print("kernels: encoder SASS tensor-core instructions per instantiation: "
+          + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
+    if not hmma or not all(hmma.values()):
+        fail(f"encoder: an instantiation of encoder_conv_kernel has no HMMA: {hmma}")
     gen = torch.Generator().manual_seed(2)
     nets = WMNets(cfg.wm, cfg.env.action_dim, torch.bfloat16, gen)
     draw_zero_params([nets], gen)
@@ -332,6 +391,8 @@ def check_encoder(cfg, card: str) -> dict:
     oihw = [c.weight.detach().to(torch.bfloat16) for c in nets.enc_convs]
     bias16 = [c.bias.detach().to(torch.bfloat16) for c in nets.enc_convs]
     Hf, Wf = cfg.wm.obs_size
+    chans = tuple(w.shape[3] for w in ws)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # Serving's 1 and 64 envs (serving's table), the AC path's B x Tw frames of
     # a warm start and the WM update's B x horizon frames (the training
     # table; the 1500 frames also under serving's, so that each table is held
@@ -349,16 +410,25 @@ def check_encoder(cfg, card: str) -> dict:
         worst = max(worst, max_err(out, ref, tolerance,
                                    f"kernels: encoder N={n} ({rounding} table)"))
         if n != 50 and (n, rounding) != (n_wm, "serve"):
-            def library():
+            def library(fmt):
                 # The cuDNN yardstick: four bf16 conv2d + SiLU, NHWC out.
-                x = table[obs.long()].permute(0, 3, 1, 2)
-                for w, b in zip(oihw, bias16):
-                    x = F.silu(F.conv2d(x, w, b, stride=2, padding=1))
-                return x.permute(0, 2, 3, 1).reshape(n, -1)
+                wf = [w.contiguous(memory_format=fmt) for w in oihw]
+
+                def run():
+                    x = table[obs.long()].permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+                    for w, b in zip(wf, bias16):
+                        x = F.silu(F.conv2d(x, w, b, stride=2, padding=1))
+                    return x.permute(0, 2, 3, 1).reshape(n, -1)
+                return run
 
             t = {"ms": cuda_ms(lambda: encoder_forward(obs, ws, bs, table), 20),
-                 "plain_ms": cuda_ms(lambda: encoder_forward_plain(obs, ws, bs, table), 20),
-                 "library_ms": cuda_ms(library, 20)}
+                 "plain_ms": cuda_ms(lambda: encoder_forward_plain(obs, ws, bs, table), 20)}
+            lib = {name: cuda_ms(library(fmt), 20) for name, fmt in (
+                ("NCHW", torch.contiguous_format), ("channels_last", torch.channels_last))}
+            t["library_ms"] = min(lib.values())
+            layers = device_ms(lambda: encoder_forward(obs, ws, bs, table),
+                               "encoder_conv_kernel", 4)
+            dev = sum(layers) if layers else None
             flops, cin, hw = 0, 3, Hf * Wf
             for w in ws:
                 hw //= 4
@@ -368,13 +438,30 @@ def check_encoder(cfg, card: str) -> dict:
                 + 4 * sum(b.numel() for b in bs)
             t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
             times[n] = t
-            print(f"kernels: encoder N={n} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-                  f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
-                  f"({t['bound_by']}) on {card}", flush=True)
+            plan = encoder_plan(n, Hf, Wf, chans, sms)
+            print(f"kernels: encoder N={n} kernel_ms={t['ms']:.4f} "
+                  f"({flops / t['ms'] / 1e9:.1f} TFLOP/s) plain_ms={t['plain_ms']:.4f} "
+                  f"library_ms={t['library_ms']:.4f} (cuDNN NCHW {lib['NCHW']:.4f}, "
+                  f"channels_last {lib['channels_last']:.4f}) bound_ms={t['bound_ms']:.4f} "
+                  f"({t['bound_by']}); device time (profiler) {dev} ms, by layer "
+                  + (" ".join(f"{x:.4f}" for x in layers) if layers else "not measured")
+                  + f" on {card}", flush=True)
+            t["device_ms"] = dev
+            print(f"kernels: encoder N={n} grid: 4 launches of 256 threads, blocks "
+                  + ", ".join(f"L{l} {p.blocks} ({p.bm}x{p.bn} tile, MT={p.mt} NT={p.nt}, "
+                              f"{p.g} frame{'s' if p.g > 1 else ''}/block, "
+                              f"{p.smem} B smem)" for l, p in enumerate(plan))
+                  + f" on {sms} SMs", flush=True)
     # The line's times are at the world-model update's shape.
     return {"name": "encoder", "route": "cuda", "source": "dreamer_tpu_torch/csrc/encoder.cu",
             "replaces": "dreamer_tpu/ops/conv_pallas.py:144", "max_abs_err": worst,
-            **times[n_wm], "ms_at_1250": times[n_ac]["ms"]}
+            **times[n_wm], "ms_at_1250": times[n_ac]["ms"],
+            "library_ms_at_1250": times[n_ac]["library_ms"],
+            "ms_at_1": times[1]["ms"], "library_ms_at_1": times[1]["library_ms"],
+            "device_ms_at_1": times[1]["device_ms"],
+            "ms_at_64": times[64]["ms"], "library_ms_at_64": times[64]["library_ms"],
+            "device_ms_at_64": times[64]["device_ms"],
+            "sass_hmma": sum(hmma.values())}
 
 
 def run_policy(policy, cfg, card: str) -> None:
@@ -722,6 +809,7 @@ def run_ac_step(cfg, card: str) -> dict:
 
 
 PHASES = ("ac_update/", "wm_update/")
+PORT_KERNELS = ("encoder_conv_kernel", "gru_cell_kernel", "gru_scan_kernel", "imagine_kernel")
 
 
 def profile_step(label: str, step, card: str, top: int = 8) -> None:
@@ -757,6 +845,15 @@ def profile_step(label: str, step, card: str, top: int = 8) -> None:
                   f"{e.cpu_time_total / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms", flush=True)
     for dev, cnt, key in sorted(per_kernel, reverse=True)[:top]:
         print(f"profile: {label}   {dev / 1e3:8.3f} ms  x{cnt}  {key[:90]}", flush=True)
+    # The port's kernels, each summed over its instantiations.
+    totals = {name: [0.0, 0] for name in PORT_KERNELS}
+    for dev, cnt, key in per_kernel:
+        for name in PORT_KERNELS:
+            if name in key:
+                totals[name][0] += dev
+                totals[name][1] += cnt
+    print(f"profile: {label}   port kernels: "
+          + ", ".join(f"{n} {d / 1e3:.3f} ms x{c}" for n, (d, c) in totals.items()), flush=True)
 
 
 def profile_ac_step(trainer, state, ring, card: str) -> None:

@@ -200,6 +200,56 @@ def test_encoder_kernel_layout_is_hwio():
     assert torch.equal(w_hwio[1, 2, 0], w[:, 0, 1, 2].to(torch.bfloat16))
 
 
+ENCODER_SHAPES = [(1, 64, 64, (32, 64, 128, 256)), (13, 64, 64, (32, 64, 128, 256)),
+                  (64, 64, 64, (32, 64, 128, 256)), (1250, 64, 64, (32, 64, 128, 256)),
+                  (1500, 64, 64, (32, 64, 128, 256)), (3, 64, 64, (48, 96, 192, 384)),
+                  (3, 32, 32, (4, 8, 16, 32)), (2, 16, 16, (8, 8, 16, 32)),
+                  (5, 48, 80, (12, 20, 40, 80)), (2, 128, 128, (32, 64, 128, 256))]
+
+
+@pytest.mark.parametrize("n,h,w,chans", ENCODER_SHAPES)
+def test_encoder_plan_fits_and_covers_every_output(n, h, w, chans):
+    """Each layer's launch is one the kernel is built for, fits in shared
+    memory, and its blocks cover every frame, pixel and channel; a weight
+    K-chunk is whole k16 steps and divides K."""
+    plans = conv_cuda.encoder_plan(n, h, w, chans)
+    cin = 3
+    for l, (p, co) in enumerate(zip(plans, chans)):
+        hwo = (h >> l + 1) * (w >> l + 1)
+        k = 16 * conv_cuda.stored_channels(cin)
+        assert p.mt in conv_cuda.TILES and p.nt in conv_cuda.TILES
+        assert p.bn == p.wn * p.nt * 8 and p.bn & (p.bn - 1) == 0
+        assert p.bm == conv_cuda.WARPS // p.wn * p.mt * 16
+        assert p.smem <= conv_cuda.SMEM_LIMIT
+        assert p.kc % 16 == 0 and k % p.kc == 0
+        nb = -(-(co if l == 3 else conv_cuda.stored_channels(co)) // p.bn)
+        assert p.blocks % nb == 0
+        row_blocks = p.blocks // nb
+        if p.g > 1:
+            assert p.g * hwo <= p.bm and row_blocks * p.g >= n > (row_blocks - 1) * p.g
+        else:
+            assert row_blocks == n * -(-hwo // p.bm)
+        assert p == conv_cuda.layer_plan(n, h >> l, w >> l, cin, co, p.mt, p.nt, p.wn, l)
+        cin = co
+
+
+def test_encoder_plan_spreads_few_frames_and_tiles_many():
+    """Serving's 1 and 64 frames put every layer on more blocks than frames,
+    so that more SMs work than there are frames; the learner's 1500 take the
+    largest warp tile in every layer, each weight chunk serving at least 64
+    rows (4 frames in layer 3), and at least one block per SM in every layer."""
+    chans = (32, 64, 128, 256)
+    for n in (1, 64):
+        assert all(p.blocks > n for p in conv_cuda.encoder_plan(n, 64, 64, chans))
+    for p in conv_cuda.encoder_plan(1500, 64, 64, chans):
+        assert (p.mt, p.nt) == (4, 4) and p.bm >= 64 and p.blocks >= 132
+
+
+def test_stored_channels_pad_to_whole_k16_steps():
+    assert [conv_cuda.stored_channels(c) for c in (1, 3, 4, 5, 8, 9, 17, 48, 96)] == \
+        [4, 4, 4, 16, 16, 16, 32, 48, 96]
+
+
 def test_gru_tolerance_is_below_the_size_of_its_output():
     x, h, ops = gru_operands(16, 67, 64)
     ref = gru_cell_plain(x, h, *ops)
@@ -333,6 +383,21 @@ def test_each_kernel_source_carries_its_note():
         assert 'extern "C" int dt_' in srcs[name]
 
 
+def test_each_mutant_changes_one_line_of_its_kernel_source():
+    """Each faulty copy that chip_mutants.py builds replaces a line found
+    exactly once in its kernel's source, so the copy is the right kernel but
+    for that line."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_mutants", os.path.join(os.path.dirname(FLAGSHIP), "..", "chip_mutants.py"))
+    mutants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mutants)
+    srcs = {p.name: p.read_text() for p in cuda_build.sources()}
+    assert {source for source, _, _ in mutants.MUTANTS.values()} == {"gru_scan.cu", "encoder.cu"}
+    for source, good, bad in mutants.MUTANTS.values():
+        assert srcs[source].count(good) == 1 and bad != good
+
+
 def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     key = cuda_build._digest()
     assert key == cuda_build._digest() and re.fullmatch(r"[0-9a-f]{16}", key)
@@ -379,7 +444,11 @@ def test_gru_kernel_matches_plain_on_card(cuda, n, i, h):
 @pytest.mark.parametrize("rounding", ["serve", "train"])
 @pytest.mark.parametrize("n,size,filters", [(1, 64, (32, 64)), (50, 64, (32, 64)),
                                             (3, 64, (48, 96)),  # car_racer_64env.yaml
-                                            (3, 32, (4, 8)), (2, 16, (8, 8))])
+                                            (3, 32, (4, 8)), (2, 16, (8, 8)),
+                                            # the learner's frames, serving's 64 envs and a
+                                            # count no frames-per-block grouping divides
+                                            (1250, 64, (32, 64)), (1500, 64, (32, 64)),
+                                            (64, 64, (32, 64)), (13, 64, (32, 64))])
 def test_encoder_kernel_matches_plain_on_card(cuda, n, size, filters, rounding):
     obs, ws, bs, table = encoder_operands(n, size, filters, torch.bfloat16, rounding=rounding)
     obs, table = obs.to(cuda), table.to(cuda)
