@@ -5,16 +5,28 @@
 
 Copies ``dreamer_tpu_torch`` into a temporary directory outside the checkout,
 writes faulty versions of a kernel source there, and runs the checks that
-``chip_smoke.py`` holds that kernel to on the right kernel and on each faulty
+``chip_smoke.py`` holds that kernel to on the right kernels and on each faulty
 one.
 
-The whole-scan GRU (``csrc/gru_scan.cu``), held by ``gru_scan_cuda.compare``
-against the plain version and ``gru_scan_cuda.hold_scan`` for the carry, at
-the flagship T 30 x B 50 and at the world-model path's T 1 x B 1500:
+The GRU kernels (``csrc/gru_cell.cu`` and ``csrc/gru_scan.cu`` on the shared
+core ``csrc/gru_core.cuh``), held by two checks at the flagship widths:
 
-- ``carry``: h' is never written to the next step's state, so every step
-  after the first starts from zero;
-- ``bias``: the hidden bias of the n gate (b_hn) is dropped.
+- ``scan``: ``gru_scan_cuda.compare`` against the plain version and
+  ``gru_scan_cuda.hold_scan`` for the carry, at T 30 x B 50 and at the
+  world-model path's T 1 x B 1500;
+- ``cell``: the cell against ``gru_cell_plain`` within ``gru_cuda.tolerance``
+  at 1, 50, 64 and 1500 rows, the 1500 rows equal to 30 launches of 50 bit
+  for bit, and the scan at T = 1 on the same bf16 states equal to the cell.
+
+Their faulty copies:
+
+- ``carry`` (``gru_scan.cu``): every step reads h0 as its state instead of
+  the last step's h';
+- ``bias`` (core): the hidden bias of the n gate (b_hn) is dropped;
+- ``k_tail`` (core): the last k16 chunk of x and of h (part zeros, part the
+  last columns: the 3 actions of x, h's columns 592-599) is skipped;
+- ``no_lo`` (core): the scan's h_lo half is zero, so its f32 state is
+  rounded to bf16 in every product.
 
 The conv encoder (``csrc/encoder.cu``), held by ``check_encoder``'s
 comparison (every feature within ``conv_cuda.tolerance`` of the plain
@@ -40,15 +52,24 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# name: (source, the line to change, its faulty version)
+# name: (source, the line to change, its faulty version, the checks to run)
 MUTANTS = {
-    "carry": ("gru_scan.cu", "          h_next[r * Hp + j] = out;\n", "          (void)out;\n"),
-    "bias": ("gru_scan.cu", "  const float b_hn = bh[2 * H + j];\n",
-             "  const float b_hn = 0.0f;\n"),
+    "carry": ("gru_scan.cu", "    return t == 0 ? h0 : h_seq + (size_t)(t - 1) * N * H;\n",
+              "    return h0;\n", ("scan",)),
+    "bias": ("gru_core.cuh", "  b.hn = __ldg(bh + 2 * H + j);\n", "  b.hn = 0.0f;\n",
+             ("scan", "cell")),
+    "k_tail": ("gru_core.cuh",
+               "__host__ __device__ inline int chunks16(int K) { return (K + 15) / 16; }\n",
+               "__host__ __device__ inline int chunks16(int K) { return K / 16; }\n",
+               ("scan", "cell")),
+    "no_lo": ("gru_core.cuh",
+              "    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * e] - af.x, v[2 * e + 1] - af.y);\n",
+              "    const __nv_bfloat162 b = __floats2bfloat162_rn(0.0f, 0.0f);\n", ("scan", "cell")),
     "enc_kchunk": ("encoder.cu", "      const bool ok = ci < p.C && n < p.Co;\n",
-                   "      const bool ok = ci < p.C && n < p.Co && !(p.Cs == 128 && kc == p.nkc - 1);\n"),
+                   "      const bool ok = ci < p.C && n < p.Co && !(p.Cs == 128 && kc == p.nkc - 1);\n",
+                   ("encoder",)),
     "enc_bias": ("encoder.cu", "  return n < p.Co ? __ldg(p.b + n) : 0.0f;\n",
-                 "  return n < p.Co && p.Cs != 64 ? __ldg(p.b + n) : 0.0f;\n"),
+                 "  return n < p.Co && p.Cs != 64 ? __ldg(p.b + n) : 0.0f;\n", ("encoder",)),
 }
 
 SCAN_CHECK = r'''
@@ -75,6 +96,36 @@ for T, B in ((30, 50), (1, 1500)):
         line += (f"; hold_scan carry mismatches {int(held['carry_mismatches'])}, "
                  f"failures {len(held['failures'])}")
     print(line, flush=True)
+print(f"mutants: {name} checks failed {failed}", flush=True)
+'''
+
+CELL_CHECK = r'''
+import sys, torch
+from dreamer_tpu_torch.nets.gru import GRUCell
+from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_cell_plain, tolerance
+from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
+
+name, failed = sys.argv[1], 0
+g = torch.Generator().manual_seed(1)
+I, H = 1027, 600
+ops = GRUCell(I, H, torch.bfloat16, g).cuda().kernel_weights()
+for n in (1, 50, 64, 1500):
+    x = torch.randn(n, I, generator=g).to("cuda", torch.bfloat16)
+    h = torch.randn(n, H, generator=g).clamp(-1, 1).to("cuda", torch.bfloat16)
+    out = gru_cell(x, h, *ops)
+    ref = gru_cell_plain(x, h, *ops)
+    err, tol = (out.float() - ref.float()).abs(), tolerance(ref)
+    bad = not bool(torch.isfinite(out).all()) or bool((err > tol).any())
+    line = f"mutants: {name} cell N={n}: max |kernel - plain| {float(err.max()):.3e}"
+    if n == 1500:
+        parts = torch.cat([gru_cell(x[i:i + 50], h[i:i + 50], *ops) for i in range(0, n, 50)])
+        scan = gru_scan(x[None], h.float(), *ops)[0][0].to(torch.bfloat16)
+        split, coupled = int((parts != out).sum()), int((scan != out).sum())
+        bad = bad or split > 0 or coupled > 0
+        line += (f"; elements differing from 30 launches of 50 rows {split}, from the scan "
+                 f"at T = 1 {coupled}")
+    failed += bad
+    print(f"{line} -> {'FAILS' if bad else 'passes'}", flush=True)
 print(f"mutants: {name} checks failed {failed}", flush=True)
 '''
 
@@ -108,19 +159,20 @@ for n, rounding in ((1, "serve"), (50, "serve"), (64, "serve"), (1250, "train"),
           flush=True)
 print(f"mutants: {name} checks failed {failed}", flush=True)
 '''
-CHECKS = {"gru_scan.cu": SCAN_CHECK, "encoder.cu": ENCODER_CHECK}
+CHECKS = {"scan": SCAN_CHECK, "cell": CELL_CHECK, "encoder": ENCODER_CHECK}
 
 
-def run(name: str, package_parent: Path, source: str) -> int:
-    """The number of failed checks of one version of the kernel in ``source``."""
+def run(name: str, package_parent: Path, check: str) -> int:
+    """The number of failed checks of one version of the kernels under
+    ``package_parent`` by the check ``check``."""
     env = dict(os.environ, PYTHONPATH=str(package_parent))
-    out = subprocess.run([sys.executable, "-c", CHECKS[source], name], env=env,
+    out = subprocess.run([sys.executable, "-c", CHECKS[check], name], env=env,
                          cwd=package_parent,
                          capture_output=True, text=True, timeout=600)
     sys.stdout.write(out.stdout)
     if out.returncode != 0:
         sys.stdout.write(out.stderr)
-        raise RuntimeError(f"the {name} kernel's check did not run")
+        raise RuntimeError(f"the {name} kernel's {check} check did not run")
     return int(out.stdout.strip().splitlines()[-1].split()[-1])
 
 
@@ -133,10 +185,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout
     print(card.strip().splitlines()[0].strip(), flush=True)
-    right = {source: run(f"right {source}", ROOT, source) for source in CHECKS}
+    right = {check: run(f"right ({check})", ROOT, check) for check in CHECKS}
     failed = {"right": sum(right.values())}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (source, good, bad) in MUTANTS.items():
+        for name, (source, good, bad, checks) in MUTANTS.items():
             parent = Path(tmp) / name
             shutil.copytree(ROOT / "dreamer_tpu_torch", parent / "dreamer_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -145,7 +197,10 @@ def main() -> int:
             if text.count(good) != 1:
                 raise RuntimeError(f"{name}: the line to change is not in {source} once")
             src.write_text(text.replace(good, bad))
-            failed[name] = run(name, parent, source)
+            by_check = {check: run(f"{name} ({check})", parent, check) for check in checks}
+            print(f"mutants: {name} failed " + ", ".join(f"{c} {v}" for c, v in by_check.items()),
+                  flush=True)
+            failed[name] = sum(by_check.values())
     ok = failed["right"] == 0 and all(failed[n] > 0 for n in MUTANTS)
     print(f"mutants: right kernels failed {failed['right']} checks; faulty kernels failed "
           + ", ".join(f"{n} {failed[n]}" for n in MUTANTS)

@@ -8,17 +8,21 @@ Phases, each printing its lines; any failure exits non-zero:
 1. card:    the card's name and power limit, as nvidia-smi prints them.
 2. build:   compile the CUDA kernels under dreamer_tpu_torch/csrc with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, in
-            bf16 at the flagship shapes (GRU N = 1, 50, 64 rows; the
-            whole-scan GRU at T 30 x B 50, its carry held bit for bit by a
-            T = 1 relaunch from its own states, and at the world-model path's
-            T 1 x B 1500; encoder N = 1, 50, 64, the warm start's 1250 frames
-            and the world-model update's 1500 under both normalisation
-            tables), with its time beside the plain version's, one library
-            call's and the least time the card could take (its bound); for
-            the encoder also its blocks per launch at each N and the
-            tensor-core (HMMA) instructions of each instantiation in the
-            built library's SASS (cuobjdump), and cuDNN timed in NCHW and
-            channels_last, the faster kept as its library time.
+            bf16 at the flagship shapes (GRU cell N = 1, 50, 64 and the
+            1500 rows of hold_observe; the whole-scan GRU at T 30 x B 50,
+            its carry held bit for bit by a T = 1 relaunch from its own
+            states, and at the world-model path's T 1 x B 1500, where on
+            bf16-valued states it must equal the GRU cell bit for bit;
+            encoder N = 1, 50, 64, the warm start's 1250 frames and the
+            world-model update's 1500 under both normalisation tables),
+            with its time beside the plain version's, one library call's
+            and the least time the card could take (its bound); the
+            profiler's device time where CUDA events time the host's
+            launches (the GRU cell and torch.gru_cell, the encoder); each
+            kernel's launch grid and the tensor-core (HMMA) instructions of
+            each instantiation in the built library's SASS (cuobjdump); for
+            the encoder cuDNN timed in NCHW and channels_last, the faster
+            kept as its library time.
 4. policy:  the serving path, Policy.policy_reset then policy_act_observe
             steps with a reset row partway, at the flagship widths of
             configs/car_racer.yaml (read by the port's own YAML reader) with
@@ -56,9 +60,10 @@ Phases, each printing its lines; any failure exits non-zero:
             2 x 30 + 2 x 24), finite unskipped updates, world-model parameters
             that moved, the actor-critic half reading the updated world
             model's kernel layouts, the posterior scan's kernels held at the
-            update's own operands (``observe_scan.hold_observe``), a profile
-            of one iteration; then one wm_update on the card against the same
-            update on the CPU (a sanity check guarding no kernel).
+            update's own operands (``observe_scan.hold_observe``, the
+            whole-scan GRU's h' there equal to the forward's bit for bit), a
+            profile of one iteration; then one wm_update on the card against
+            the same update on the CPU (a sanity check guarding no kernel).
 9. the "kernels" JSON line, then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
@@ -200,44 +205,71 @@ def draw_zero_params(modules, gen) -> None:
 
 
 def check_gru(cfg, card: str) -> dict:
+    """The GRU cell kernel at serving's 1 and 64 rows, the learner's 50 and
+    the 1500 of hold_observe against its plain version; CUDA-event times
+    beside the plain version's and torch.gru_cell's, the profiler's device
+    time per launch of both (CUDA events time the host's launch at few
+    rows), the plan's blocks and the tensor-core instructions in its SASS."""
     import torch
 
     from dreamer_tpu_torch.nets.gru import GRUCell
-    from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_cell_plain, tolerance
+    from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_cell_plain, gru_plan, tolerance
 
+    hmma = sass_hmma("gru_cell_kernel")
+    print("kernels: gru_cell SASS tensor-core instructions per instantiation: "
+          + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
+    if not hmma or not all(hmma.values()):
+        fail(f"gru_cell: an instantiation of gru_cell_kernel has no HMMA: {hmma}")
     H = cfg.wm.hidden_dim
     I = cfg.wm.latent_dim + cfg.env.action_dim
     gen = torch.Generator().manual_seed(1)
     cell = GRUCell(I, H, torch.bfloat16, gen).cuda()
     wi_t, wh_t, bi, bh = cell.kernel_weights()
+    # The library yardstick: torch.gru_cell has the same semantics.
+    w_ih = cell.kernel_i.detach().t().contiguous().to(torch.bfloat16)
+    w_hh = cell.kernel_h.detach().t().contiguous().to(torch.bfloat16)
+    b_ih = cell.bias_i.detach().to(torch.bfloat16)
+    b_hh = cell.bias_h.detach().to(torch.bfloat16)
     worst, times = 0.0, {}
-    for n in (1, 50, 64):
+    for n in (1, 50, 64, 1500):
         x = torch.randn(n, I, generator=gen).to("cuda", torch.bfloat16)
         h = torch.randn(n, H, generator=gen).clamp(-1, 1).to("cuda", torch.bfloat16)
         out = gru_cell(x, h, wi_t, wh_t, bi, bh)
         torch.cuda.synchronize()
         ref = gru_cell_plain(x, h, wi_t, wh_t, bi, bh)
         worst = max(worst, max_err(out, ref, tolerance, f"kernels: gru_cell N={n}"))
-        # The library yardstick: torch.gru_cell has the same semantics.
-        w_ih = cell.kernel_i.detach().t().contiguous().to(torch.bfloat16)
-        w_hh = cell.kernel_h.detach().t().contiguous().to(torch.bfloat16)
-        b_ih = cell.bias_i.detach().to(torch.bfloat16)
-        b_hh = cell.bias_h.detach().to(torch.bfloat16)
-        t = {"ms": cuda_ms(lambda: gru_cell(x, h, wi_t, wh_t, bi, bh), 200),
+        kernel = lambda: gru_cell(x, h, wi_t, wh_t, bi, bh)  # noqa: E731
+        library = lambda: torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)  # noqa: E731
+        t = {"ms": cuda_ms(kernel, 200),
              "plain_ms": cuda_ms(lambda: gru_cell_plain(x, h, wi_t, wh_t, bi, bh), 200),
-             "library_ms": cuda_ms(lambda: torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh), 200)}
+             "library_ms": cuda_ms(library, 200)}
+        dev = device_ms(kernel, "gru_cell_kernel", 1)
+        t["device_ms"] = dev[0] if dev else None
+        t["library_device_ms"] = device_total_ms(library)
         # x, h and the out in bf16; the unpadded gate weights (I + H, 3H)
         # and the biases, which the flax cell rounds to bf16.
         nbytes = 2 * (n * I + n * H + 3 * H * (I + H) + n * H) + 2 * 6 * H
         t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 2 * n * 3 * H * (I + H))
         times[n] = t
+        plan = gru_plan(n, 1, I, H)
         print(f"kernels: gru_cell N={n} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-              f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
-              f"({t['bound_by']}) on {card}", flush=True)
+              f"library_ms={t['library_ms']:.4f} (torch.gru_cell) bound_ms={t['bound_ms']:.4f} "
+              f"({t['bound_by']}); device time per launch (profiler) kernel {fmt_ms(dev and dev[0])}"
+              f" ms, torch.gru_cell {fmt_ms(t['library_device_ms'])} ms; {plan.row_blocks} x "
+              f"{plan.col_blocks} blocks of {plan.threads} threads ({plan.bm} x {plan.j} tiles, "
+              f"{plan.smem} B smem) on {card}", flush=True)
+    n_ac = cfg.train.batch_size
+    if not (times[n_ac]["device_ms"] and times[n_ac]["library_device_ms"]):
+        print("kernels: gru_cell: the profiler saw no device time at the path's rows: not "
+              "measured", flush=True)
     # The line's times are at the AC path's shape: the warm start's 50 rows.
-    return {"name": "gru_cell", "route": "cuda", "source": "dreamer_tpu_torch/csrc/gru_cell.cu",
+    line = {"name": "gru_cell", "route": "cuda", "source": "dreamer_tpu_torch/csrc/gru_cell.cu",
             "replaces": "dreamer_tpu/ops/gru_pallas.py:111", "max_abs_err": worst,
-            **times[cfg.train.batch_size]}
+            **times[n_ac], "sass_hmma": sum(hmma.values())}
+    for n in (1, 64, 1500):
+        for k in ("ms", "library_ms", "device_ms", "library_device_ms", "bound_ms"):
+            line[f"{k}_at_{n}"] = times[n][k]
+    return line
 
 
 def check_gru_scan(cfg, card: str) -> dict:
@@ -250,8 +282,13 @@ def check_gru_scan(cfg, card: str) -> dict:
 
     from dreamer_tpu_torch.nets.gru import GRUCell
     from dreamer_tpu_torch.ops import gru_scan_cuda as gs
-    from dreamer_tpu_torch.ops.gru_cuda import gru_cell
+    from dreamer_tpu_torch.ops.gru_cuda import gru_cell, gru_plan
 
+    hmma = sass_hmma("gru_scan_kernel")
+    print("kernels: gru_scan SASS tensor-core instructions per instantiation: "
+          + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
+    if not hmma or not all(hmma.values()):
+        fail(f"gru_scan: an instantiation of gru_scan_kernel has no HMMA: {hmma}")
     H = cfg.wm.hidden_dim
     I = cfg.wm.latent_dim + cfg.env.action_dim
     B, T = cfg.train.batch_size, cfg.train.horizon
@@ -279,11 +316,16 @@ def check_gru_scan(cfg, card: str) -> dict:
             carry = (f"; the launch relaunched at T = 1 from its own {t * b} states differs "
                      f"bit for bit in {int(held['carry_mismatches'])} (step, row) pairs")
         else:
-            # One step on bf16-valued states sums as the GRU cell kernel does.
+            # One step on bf16-valued states sums as the GRU cell kernel does:
+            # one K schedule, and the h_lo half is zero.  The posterior
+            # scan's backward rests on it.
             same = gru_cell(xs[0], h0.to(torch.bfloat16), *ops)
             cell_diff = int((out[0][0].to(torch.bfloat16) != same).sum())
             carry = (f"; h' rounded to bf16 differs from the GRU cell kernel's output in "
-                     f"{cell_diff} of {same.numel()} elements (not gated)")
+                     f"{cell_diff} of {same.numel()} elements (gated: 0)")
+            if cell_diff:
+                stats["failures"].append(f"the T = 1 step differs from the GRU cell kernel in "
+                                         f"{cell_diff} elements")
         errs = " ".join(f"{n} {stats[f'max_abs_err_{n}']:.3e}" for n in gs.NAMES)
         print(f"kernels: gru_scan T={t} B={b}: max |kernel - plain| {errs} "
               f"(tol {gs.TOL} abs + rel){carry}", flush=True)
@@ -292,37 +334,48 @@ def check_gru_scan(cfg, card: str) -> dict:
         worst = max([worst] + [stats[f"max_abs_err_{n}"] for n in gs.NAMES])
         with torch.no_grad():
             h16 = h0.to(torch.bfloat16)[None]
-            tm = {"ms": cuda_ms(lambda: gs.gru_scan(xs, h0, *ops), 20),
+            kernel = lambda: gs.gru_scan(xs, h0, *ops)  # noqa: E731
+            tm = {"ms": cuda_ms(kernel, 20),
                   "plain_ms": cuda_ms(lambda: gs.gru_scan_plain(xs, h0, *ops), 5, 1)}
+            dev = device_ms(kernel, "gru_scan_kernel", 1, reps=5 if t > 1 else 20)
+            tm["device_ms"] = dev[0] if dev else None
             try:  # the yardstick only: the port never calls it
                 tm["library_ms"] = cuda_ms(lambda: lib_gru(xs, h16), 20)
             except RuntimeError as e:
                 print(f"kernels: gru_scan: cuDNN's bf16 GRU did not run ({e}): library_ms "
                       "null", flush=True)
                 tm["library_ms"] = None
-        nbytes, ops_bf16, ops_f32 = gs.bound_numbers(t, b, I, H)
-        tm["bound_ms"], tm["bound_by"] = bound_ms(nbytes, ops_bf16, ops_f32)
+        nbytes, ops_bf16 = gs.bound_numbers(t, b, I, H)
+        tm["bound_ms"], tm["bound_by"] = bound_ms(nbytes, ops_bf16)
+        # PR 6's bound, for the record: the h products counted once, at the
+        # f32 rate outside the tensor cores, as that kernel did them.
+        h_ops = 2.0 * t * b * 3 * H * H
+        old_bound = bound_ms(nbytes, ops_bf16 - 2 * h_ops, h_ops)[0]
         times[(t, b)] = tm
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        blocks = (b + 7) // 8 * (1 if t > 1 else (H + 31) // 32)
+        plan = gru_plan(b, t, I, H, scan=True)
         print(f"kernels: gru_scan T={t} B={b} kernel_ms={tm['ms']:.4f} "
               f"plain_ms={tm['plain_ms']:.4f} library_ms={tm['library_ms']} "
               f"(cuDNN torch.nn.GRU, h_seq only) bound_ms={tm['bound_ms']:.4f} "
-              f"({tm['bound_by']}: {nbytes / 1e6:.2f} MB, {ops_bf16 / 1e9:.2f} GFLOP bf16 + "
-              f"{ops_f32 / 1e9:.2f} GFLOP f32); {blocks} blocks on {sms} SMs on {card}",
-              flush=True)
+              f"({tm['bound_by']}: {nbytes / 1e6:.2f} MB, {ops_bf16 / 1e9:.2f} GFLOP bf16 with "
+              f"both halves of h; PR 6's bound with the h part at the f32 rate "
+              f"{old_bound:.4f}); device time (profiler) {fmt_ms(tm['device_ms'])} ms; "
+              f"{plan.row_blocks} x {plan.col_blocks} blocks of {plan.threads} threads "
+              f"({plan.bm} x {plan.j} tiles, {plan.col_steps} column groups a step, "
+              f"{plan.smem} B smem) on {card}", flush=True)
     # The line's times are at the world-model path's form.
     return {"name": "gru_scan", "route": "cuda", "source": "dreamer_tpu_torch/csrc/gru_scan.cu",
             "replaces": "dreamer_tpu/ops/gru_pallas.py:223", "max_abs_err": worst,
             **times[(1, T * B)],
             "ms_at_T30_B50": times[(T, B)]["ms"], "plain_ms_at_T30_B50": times[(T, B)]["plain_ms"],
             "library_ms_at_T30_B50": times[(T, B)]["library_ms"],
-            "bound_ms_at_T30_B50": times[(T, B)]["bound_ms"]}
+            "device_ms_at_T30_B50": times[(T, B)]["device_ms"],
+            "bound_ms_at_T30_B50": times[(T, B)]["bound_ms"], "sass_hmma": sum(hmma.values())}
 
 
-def encoder_sass() -> dict:
-    """HMMA (and HGMMA) instructions in each instantiation of the encoder
-    kernel in the built library, read with the toolkit's cuobjdump -sass."""
+def sass_hmma(kernel: str) -> dict:
+    """HMMA (and HGMMA) instructions in each instantiation of the kernel
+    whose name holds ``kernel`` in the built library, read with the
+    toolkit's cuobjdump -sass; keyed by its template arguments."""
     from dreamer_tpu_torch.ops import cuda_build
 
     cuobjdump = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
@@ -332,22 +385,25 @@ def encoder_sass() -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "encoder_conv_kernel" not in fn:
+            if kernel not in fn:
                 fn = None
                 continue
-            tiles = re.search(r"ILi(\d+)ELi(\d+)E", fn)
-            fn = f"MT={tiles.group(1)},NT={tiles.group(2)}" if tiles else fn
+            args = re.findall(r"Li(\d+)E", fn)
+            fn = f"<{','.join(args)}>" if args else fn
             counts[fn] = 0
         elif fn and re.search(r"\bH(G)?MMA\b", line):
             counts[fn] += 1
     return counts
 
 
-def device_ms(fn, kernel: str, per_call: int, reps: int = 10):
-    """Device time per call of ``fn`` of each of the ``per_call`` launches
-    of the kernels whose name holds ``kernel``, in launch order
-    (torch.profiler), or None if the profiler saw none: where back-to-back
-    calls are bound by the host's launches, CUDA events time the host."""
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def _device_events(fn, reps: int):
+    """The device kernels of 1 + ``reps`` calls of ``fn`` under
+    torch.profiler, in start order.  The profiler may miss the first
+    kernel of a window, so the first call is there to be dropped."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -355,12 +411,35 @@ def device_ms(fn, kernel: str, per_call: int, reps: int = 10):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(reps + 1):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if len(events) != per_call * reps:
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def device_total_ms(fn, reps: int = 20):
+    """Device time per call of ``fn``, all its kernels summed over the last
+    ``reps`` calls (torch.profiler), or None if the profiler saw none."""
+    events = _device_events(fn, reps)
+    per_call = -(-len(events) // (reps + 1))
+    if not events or len(events) < reps * per_call:
         return None
+    return sum(e.device_time_total for e in events[-reps * per_call:]) / reps / 1e3
+
+
+def device_ms(fn, kernel: str, per_call: int, reps: int = 20):
+    """Device time per call of ``fn`` of each of the ``per_call`` launches
+    of the kernels whose name holds ``kernel``, in launch order, over the
+    last ``reps`` calls (torch.profiler), or None if the profiler saw fewer:
+    where back-to-back calls are bound by the host's launches, CUDA events
+    time the host."""
+    events = [e for e in _device_events(fn, reps) if kernel in e.name]
+    if len(events) < per_call * reps:
+        print(f"device_ms: the profiler saw {len(events)} launches of {kernel}, expected "
+              f"{per_call * reps} or more", flush=True)
+        return None
+    events = events[-per_call * reps:]
     return [sum(e.device_time_total for e in events[i::per_call]) / reps / 1e3
             for i in range(per_call)]
 
@@ -377,8 +456,8 @@ def check_encoder(cfg, card: str) -> dict:
     from dreamer_tpu_torch.ops.conv_cuda import (encoder_forward, encoder_forward_plain,
                                                  encoder_plan, tolerance)
 
-    hmma = encoder_sass()
-    print("kernels: encoder SASS tensor-core instructions per instantiation: "
+    hmma = sass_hmma("encoder_conv_kernel")
+    print("kernels: encoder SASS tensor-core instructions per instantiation (MT, NT): "
           + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
     if not hmma or not all(hmma.values()):
         fail(f"encoder: an instantiation of encoder_conv_kernel has no HMMA: {hmma}")
@@ -979,9 +1058,14 @@ def run_train_iteration(cfg, card: str) -> dict:
           + " ".join(f"{n} {stats[f'scan_max_abs_err_{n}']:.3e}"
                      for n in ("h_seq", "r", "z", "n", "hn"))
           + f" (tol 1e-3 abs + rel); its h' in bf16 differing from the forward's in "
-          f"{int(stats['scan_vs_forward_mismatches'])} (step, row) pairs (not gated)", flush=True)
+          f"{int(stats['scan_vs_forward_mismatches'])} (step, row) pairs (gated: 0)", flush=True)
     if stats["failures"]:
         fail(f"train_iteration: posterior scan kernels: {stats['failures']}")
+    # The backward takes its GRU residuals from the scan kernel at the
+    # forward's own states: one K schedule makes them the cell's, bit for bit.
+    if stats["scan_vs_forward_mismatches"]:
+        fail(f"train_iteration: the whole-scan GRU at T = 1 differs from the forward's GRU "
+             f"cell in {int(stats['scan_vs_forward_mismatches'])} (step, row) pairs")
     one_hot_rows(seq.z.reshape(-1, cfg.wm.latent_dim), cfg.wm, "train_iteration: posterior z")
 
     gen_p = torch.Generator(device="cuda").manual_seed(14)

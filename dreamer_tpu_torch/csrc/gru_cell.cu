@@ -1,170 +1,122 @@
-// One GRU step with torch nn.GRUCell gate semantics, forward only.
+// One GRU step with torch nn.GRUCell gate semantics, forward only, on the
+// tensor cores.
 //
 // Replaces: dreamer_tpu/ops/gru_pallas.py, gru_cell_pallas / _forward_padded
 // (kernel _gru_kernel, gate math _gate_math).  Serving needs no residuals (the
 // TPU kernel's r, z, n, hn outputs feed only its backward), so none are kept.
 //
-//   r = sigmoid(x.W_ir + b_ir + h.W_hr + b_hr)
-//   z = sigmoid(x.W_iz + b_iz + h.W_hz + b_hz)
+//   r = sigmoid(x.W_ir + h.W_hr + b_ir + b_hr)
+//   z = sigmoid(x.W_iz + h.W_hz + b_iz + b_hz)
 //   n = tanh(x.W_in + b_in + r * (h.W_hn + b_hn))
 //   out = (1 - z) * n + z * h
 //
-// Inputs are bf16; dots accumulate in f32, the gate math runs in f32, and the
-// output is rounded to bf16 once, as in _gate_math.
+// Inputs are bf16; products are bf16 x bf16 summed in f32 on the tensor
+// cores, the gate math runs in f32, and the output is rounded to bf16 once,
+// as in _gate_math.
 //
 // What bounds it on an H100: the gate weights.  At the flagship shapes
 // (x 1027 wide, h 600 wide, 3 gates of 600) one launch must read
 // (1027 + 600) * 1800 * 2 B = 5.9 MB of weights, about 1.8 us at 3.35 TB/s,
-// against a few MFLOP of work for the 1 to 64 rows served.
+// against 0.3 GFLOP for the 50 rows of a learner step (0.3 us at the bf16
+// tensor-core rate); at 1500 rows the 8.8 GFLOP bound it (8.9 us).
 //
-// Design: the weights come in a transposed per-gate layout, (3H, K) with gate
-// rows r | z | n and K zero-padded to a multiple of 8, made once when the
-// weights are loaded, so that a warp reads each gate row as contiguous 16-byte
-// vectors.  A block stages kRows rows of x and h in shared memory and gives
-// one hidden column to each warp; the warp reads that column's six weight rows
-// once and applies them to all kRows rows, so the weights are read from
-// device memory once per row tile (the further row tiles of a 64-row batch
-// find them in the 50 MB L2).  Lanes split K, a shuffle reduction sums them,
-// and the epilogue is fused.  No tensor cores, TMA or pipelining yet: at 1 to
-// 64 rows the launch is a weight stream, and those are the next step.
+// Design: the core in gru_core.cuh, shared with the whole-scan GRU (the h_lo
+// half left out: h is bf16 here), so that a one-step scan on the same bf16
+// state reproduces this kernel bit for bit.  Up to 64 rows (serving, the
+// learner's 50) the few-rows plan: 16-row x 8-column blocks, 300 at 50 rows,
+// the weights streamed by the TMA beside 2 MMA warps, so that the 5.9 MB
+// spread over every SM; more rows (hold_observe's 1500) take 32 x 32 tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gru_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // hidden columns per block, one per warp
-constexpr int kRows = 8;   // batch rows per block
+struct CellIO {
+  static constexpr bool kLo = false;
+  using HT = __nv_bfloat16;
+  const __nv_bfloat16* x;   // (N, I)
+  const __nv_bfloat16* h;   // (N, H)
+  const __nv_bfloat16* wi;  // (3H, Ip), rows r | z | n
+  const __nv_bfloat16* wh;  // (3H, Hp), rows r | z | n
+  const float* bi;          // (3H,)
+  const float* bh;          // (3H,)
+  __nv_bfloat16* out;       // (N, H)
+  int N, T, I, H, Ip, Hp;
 
-__device__ __forceinline__ void unpack8(const uint4& v, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+  __device__ const __nv_bfloat16* x_row(int, int row) const { return x + (size_t)row * I; }
+  __device__ const __nv_bfloat16* h_row(int, int row) const { return h + (size_t)row * H; }
+  __device__ float h_at(int, int row, int j) const {
+    return __bfloat162float(h[(size_t)row * H + j]);
   }
+  __device__ void store(int, int row, int j, const gru::Gates& g) const {
+    out[(size_t)row * H + j] = __float2bfloat16(g.out);
+  }
+};
+
+template <int MT, int RW, int CW>
+__global__ void __launch_bounds__(gru::kThreads, MT == 1 && CW == 1 ? 3 : 1) gru_cell_kernel(const CellIO io, const gru::Plan p, const __grid_constant__ CUtensorMap twi,
+                const __grid_constant__ CUtensorMap twh) {
+  gru::run_block<MT, RW, CW>(io, p, &twi, &twh);
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// Stage rows [row0, row0 + kRows) of a (N, K) matrix into a (kRows, Kp) tile,
-// zero beyond the matrix.
-__device__ void stage(const __nv_bfloat16* __restrict__ src, int N, int K, int Kp,
-                      int row0, __nv_bfloat16* tile) {
-  for (int i = threadIdx.x; i < kRows * Kp; i += blockDim.x) {
-    const int r = i / Kp, k = i - r * Kp, row = row0 + r;
-    tile[i] = (row < N && k < K) ? src[(size_t)row * K + k] : __float2bfloat16(0.0f);
+template <int MT, int RW, int CW>
+cudaError_t launch(const CellIO& io, const gru::Plan& p, cudaStream_t stream) {
+  // The few-rows plan loads its weight boxes by the TMA.
+  CUtensorMap twi{}, twh{};
+  if (MT == 1 && RW == 1 && CW == 1) {
+    cudaError_t err = gru::weight_map(&twi, io.wi, 3 * io.H, io.Ip);
+    if (err == cudaSuccess) err = gru::weight_map(&twh, io.wh, 3 * io.H, io.Hp);
+    if (err != cudaSuccess) return err;
   }
-}
-
-// acc_a[r] += tile[r] . wa, acc_b[r] += tile[r] . wb, acc_c[r] += tile[r] . wc
-// over Kp (a multiple of 8), one warp.
-__device__ __forceinline__ void dot3(const __nv_bfloat16* __restrict__ wa,
-                                     const __nv_bfloat16* __restrict__ wb,
-                                     const __nv_bfloat16* __restrict__ wc,
-                                     const __nv_bfloat16* tile, int Kp, int lane,
-                                     float* acc_a, float* acc_b, float* acc_c) {
-  const uint4* va = reinterpret_cast<const uint4*>(wa);
-  const uint4* vb = reinterpret_cast<const uint4*>(wb);
-  const uint4* vc = reinterpret_cast<const uint4*>(wc);
-  for (int c = lane; c < Kp / 8; c += 32) {
-    float fa[8], fb[8], fc[8];
-    unpack8(__ldg(va + c), fa);
-    unpack8(__ldg(vb + c), fb);
-    unpack8(__ldg(vc + c), fc);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float fx[8];
-      unpack8(*reinterpret_cast<const uint4*>(tile + (size_t)r * Kp + 8 * c), fx);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        acc_a[r] = fmaf(fx[e], fa[e], acc_a[r]);
-        acc_b[r] = fmaf(fx[e], fb[e], acc_b[r]);
-        acc_c[r] = fmaf(fx[e], fc[e], acc_c[r]);
-      }
-    }
+  static bool attributed = false;
+  if (!attributed) {
+    const cudaError_t err = gru::allow_smem(gru_cell_kernel<MT, RW, CW>);
+    if (err != cudaSuccess) return err;
+    attributed = true;
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-gru_cell_kernel(const __nv_bfloat16* __restrict__ x,   // (N, I)
-                const __nv_bfloat16* __restrict__ h,   // (N, H)
-                const __nv_bfloat16* __restrict__ wi,  // (3H, Ip), rows r | z | n
-                const __nv_bfloat16* __restrict__ wh,  // (3H, Hp), rows r | z | n
-                const float* __restrict__ bi,          // (3H,)
-                const float* __restrict__ bh,          // (3H,)
-                __nv_bfloat16* __restrict__ out,       // (N, H)
-                int N, int I, int H, int Ip, int Hp) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // (kRows, Ip)
-  __nv_bfloat16* hs = xs + kRows * Ip;                          // (kRows, Hp)
-  const int row0 = blockIdx.x * kRows;
-  stage(x, N, I, Ip, row0, xs);
-  stage(h, N, H, Hp, row0, hs);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j = blockIdx.y * kWarps + warp;
-  if (j >= H) return;
-
-  float acc_r[kRows], acc_z[kRows], acc_in[kRows], acc_hn[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc_r[r] = acc_z[r] = acc_in[r] = acc_hn[r] = 0.0f;
-
-  dot3(wi + (size_t)j * Ip, wi + (size_t)(H + j) * Ip, wi + (size_t)(2 * H + j) * Ip,
-       xs, Ip, lane, acc_r, acc_z, acc_in);
-  dot3(wh + (size_t)j * Hp, wh + (size_t)(H + j) * Hp, wh + (size_t)(2 * H + j) * Hp,
-       hs, Hp, lane, acc_r, acc_z, acc_hn);
-
-  const float b_r = bi[j] + bh[j];
-  const float b_z = bi[H + j] + bh[H + j];
-  const float b_in = bi[2 * H + j];
-  const float b_hn = bh[2 * H + j];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float gr = warp_sum(acc_r[r]);
-    const float gz = warp_sum(acc_z[r]);
-    const float gin = warp_sum(acc_in[r]);
-    const float ghn = warp_sum(acc_hn[r]);
-    const int row = row0 + r;
-    if (lane == r && row < N) {
-      const float rg = sigmoid(gr + b_r);
-      const float zg = sigmoid(gz + b_z);
-      const float ng = tanhf(gin + b_in + rg * (ghn + b_hn));
-      const float hv = __bfloat162float(hs[r * Hp + j]);
-      out[(size_t)row * H + j] = __float2bfloat16((1.0f - zg) * ng + zg * hv);
-    }
-  }
+  gru_cell_kernel<MT, RW, CW><<<dim3(p.row_blocks, p.col_blocks), p.threads, p.smem, stream>>>(io, p, twi,
+                                                                              twh);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// The plan that the kernels launch for N rows over T steps, as kPlanFields
+// ints (gru_core.cuh Plan, in order); scan != 0 for gru_scan_kernel.  The
+// wrappers hold it against ops/gru_cuda.py gru_plan.
+extern "C" int dt_gru_plan(int N, int T, int I, int H, int scan, int* out) {
+  const gru::Plan p = gru::make_plan(N, T, H, scan != 0);
+  gru::plan_fields(p, out);
+  return gru::valid(N, T, I, H, (I + 7) / 8 * 8, (H + 7) / 8 * 8, p) ? 0
+                                                                      : (int)cudaErrorInvalidValue;
+}
+
 // x (N, I), h (N, H), out (N, H) bf16; wi (3H, Ip), wh (3H, Hp) bf16 with
-// Ip, Hp the widths rounded up to 8 and the padding zero; bi, bh (3H,) f32.
-// Returns cudaGetLastError() after the launch.
+// Ip, Hp the widths rounded up to 8 and the padding zero, 16-byte aligned;
+// bi, bh (3H,) f32.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for shapes it does not take.
 extern "C" int dt_gru_cell_forward(const void* x, const void* h, const void* wi,
                                    const void* wh, const void* bi, const void* bh,
                                    void* out, int N, int I, int H, int Ip, int Hp,
                                    void* stream) {
-  const size_t smem = (size_t)kRows * (Ip + Hp) * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gru_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((N + kRows - 1) / kRows, (H + kWarps - 1) / kWarps);
-  gru_cell_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(h),
-      static_cast<const __nv_bfloat16*>(wi), static_cast<const __nv_bfloat16*>(wh),
-      static_cast<const float*>(bi), static_cast<const float*>(bh),
-      static_cast<__nv_bfloat16*>(out), N, I, H, Ip, Hp);
-  return (int)cudaGetLastError();
+  const gru::Plan p = gru::make_plan(N, 1, H, false);
+  if (!gru::valid(N, 1, I, H, Ip, Hp, p)) return (int)cudaErrorInvalidValue;
+  CellIO io;
+  io.x = static_cast<const __nv_bfloat16*>(x);
+  io.h = static_cast<const __nv_bfloat16*>(h);
+  io.wi = static_cast<const __nv_bfloat16*>(wi);
+  io.wh = static_cast<const __nv_bfloat16*>(wh);
+  io.bi = static_cast<const float*>(bi);
+  io.bh = static_cast<const float*>(bh);
+  io.out = static_cast<__nv_bfloat16*>(out);
+  io.N = N;
+  io.T = 1;
+  io.I = I;
+  io.H = H;
+  io.Ip = Ip;
+  io.Hp = Hp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.mt == 1 && p.rw == 1 && p.cw == 1) return (int)launch<1, 1, 1>(io, p, s);
+  if (p.mt == gru::kBigMT && p.rw == 1 && p.cw == 4) return (int)launch<gru::kBigMT, 1, 4>(io, p, s);
+  return (int)cudaErrorInvalidValue;
 }

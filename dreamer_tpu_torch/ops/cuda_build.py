@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with a
 plain C interface.  The library lands in ``dreamer_tpu_torch/_build/<hash>/``,
-keyed by a hash of the sources and flags, so a second run with unchanged
-sources loads it without building.  No header of PyTorch is compiled: that
+keyed by a hash of every file under ``csrc/`` (the sources and the headers
+they include) and the flags, so a second run with unchanged files loads it
+without building.  No header of PyTorch is compiled: that
 keeps a cold build to seconds.
 
 Nothing here runs at import: the build starts on the first ``library()`` call,
@@ -45,13 +46,19 @@ def nvcc_path() -> str:
 
 
 def sources() -> Sequence[Path]:
+    """The translation units: one ``nvcc`` each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def files() -> Sequence[Path]:
+    """Every file under ``csrc/``: the sources and the headers they include."""
+    return sorted(p for p in CSRC_DIR.rglob("*") if p.is_file())
 
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
+    for src in files():
+        h.update(str(src.relative_to(CSRC_DIR)).encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 

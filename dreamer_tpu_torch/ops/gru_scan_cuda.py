@@ -24,7 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from dreamer_tpu_torch.ops import cuda_build
-from dreamer_tpu_torch.ops.gru_cuda import _round8, gate_math
+from dreamer_tpu_torch.ops.gru_cuda import _round8, check_aligned, checked_plan, gate_math
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 11 + [_I] * 6 + [_P]
@@ -97,6 +97,8 @@ def gru_scan(xs, h0, wi_t, wh_t, bi, bh) -> Tuple[torch.Tensor, ...]:
     outs = tuple(torch.empty(T, B, H, dtype=torch.float32, device=xs.device) for _ in NAMES)
     if B == 0:
         return outs
+    check_aligned("gru_scan", wi_t, wh_t)
+    checked_plan(B, T, I, H, True)
     fn = cuda_build.kernel_fn("dt_gru_scan_forward", _ARGTYPES)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
@@ -152,11 +154,15 @@ def hold_scan(out, xs, h0, weights) -> Dict[str, object]:
     return stats
 
 
-def bound_numbers(T: int, B: int, I: int, H: int) -> Tuple[float, float, float]:
-    """(bytes, bf16 operations, f32 operations) that one launch must move and
-    do: x (bf16) and h0 (f32) read, the unpadded bf16 weights and f32 biases
-    read once, the five f32 outputs written; two operations per weight per row
-    per step, the x part on bf16 inputs and the h part on f32 inputs (the gate
-    math, some 20 operations per output, is not counted)."""
+def bound_numbers(T: int, B: int, I: int, H: int) -> Tuple[float, float]:
+    """(bytes, bf16 operations) that one launch must move and do: x (bf16)
+    and h0 (f32) read, the unpadded bf16 weights and f32 biases read once,
+    the five f32 outputs written; two operations per weight per row per
+    step for the x part, and twice that for the h part, whose f32 state goes
+    through the tensor cores as two bf16 halves (the gate math, some 20
+    operations per output, is not counted).  At T 1 x B 1500 and the
+    flagship widths: 30.55 MB and 5.55 + 2 x 3.24 = 12.0 GFLOP.  (PR 6's
+    kernel did the h part once on f32 inputs outside the tensor cores, and
+    its bound counted it so, at the f32 rate.)"""
     nbytes = 2 * T * B * I + 4 * B * H + 2 * 3 * H * (I + H) + 4 * 6 * H + 4 * 5 * T * B * H
-    return nbytes, 2.0 * T * B * 3 * H * I, 2.0 * T * B * 3 * H * H
+    return nbytes, 2.0 * T * B * 3 * H * (I + 2 * H)

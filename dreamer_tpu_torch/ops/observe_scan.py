@@ -230,7 +230,9 @@ def hold_observe(nets, feats, a_in, gum, h_seq, z_seq) -> Dict[str, object]:
     - the whole-scan GRU at the backward's form (T = 1 over the T * B
       states) is held to ``gru_scan_plain`` within ``gru_scan_cuda.tolerance``;
       ``scan_vs_forward_mismatches`` counts the (step, row) pairs whose
-      state, rounded to the compute dtype, is not the forward's (not gated).
+      state, rounded to the compute dtype, is not the forward's (chip_smoke
+      gates it at 0 on the card, where the two kernels share one summation
+      order; the CPU's plain versions need not).
 
     Returns the numbers; ``failures`` lists what broke."""
     T, B = feats.shape[:2]

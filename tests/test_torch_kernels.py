@@ -392,16 +392,18 @@ def test_each_mutant_changes_one_line_of_its_kernel_source():
         "chip_mutants", os.path.join(os.path.dirname(FLAGSHIP), "..", "chip_mutants.py"))
     mutants = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mutants)
-    srcs = {p.name: p.read_text() for p in cuda_build.sources()}
-    assert {source for source, _, _ in mutants.MUTANTS.values()} == {"gru_scan.cu", "encoder.cu"}
-    for source, good, bad in mutants.MUTANTS.values():
+    srcs = {p.name: p.read_text() for p in cuda_build.files()}
+    assert {m[0] for m in mutants.MUTANTS.values()} == {"gru_scan.cu", "gru_core.cuh",
+                                                        "encoder.cu"}
+    for source, good, bad, checks in mutants.MUTANTS.values():
         assert srcs[source].count(good) == 1 and bad != good
+        assert checks and set(checks) <= set(mutants.CHECKS)
 
 
 def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     key = cuda_build._digest()
     assert key == cuda_build._digest() and re.fullmatch(r"[0-9a-f]{16}", key)
-    for src in cuda_build.sources():
+    for src in cuda_build.files():  # the sources and the headers they include
         (tmp_path / src.name).write_text(src.read_text())
     monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
     assert cuda_build._digest() == key
@@ -429,7 +431,7 @@ def _close(out, ref, tolerance):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,i,h", [(1, 1027, 600), (50, 1027, 600), (64, 1027, 600),
-                                   (3, 13, 11), (9, 67, 64)])
+                                   (1500, 1027, 600), (3, 13, 11), (9, 67, 64), (70, 37, 29)])
 def test_gru_kernel_matches_plain_on_card(cuda, n, i, h):
     x, hh, ops = gru_operands(n, i, h, torch.bfloat16)
     x, hh, ops = x.to(cuda), hh.to(cuda), [o.to(cuda) for o in ops]
@@ -462,7 +464,8 @@ def test_encoder_kernel_matches_plain_on_card(cuda, n, size, filters, rounding):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,n,i,h", [(30, 50, 1027, 600), (1, 1500, 1027, 600),
-                                     (5, 10, 37, 29), (3, 9, 67, 64)])
+                                     (5, 10, 37, 29), (3, 9, 67, 64), (1, 70, 37, 29),
+                                     (2, 20, 13, 40)])
 def test_gru_scan_kernel_matches_plain_on_card(cuda, t, n, i, h):
     """All five outputs within ``gru_scan_cuda.tolerance`` of the plain
     version; a T-step launch reproduced bit for bit by its steps relaunched
@@ -480,14 +483,52 @@ def test_gru_scan_kernel_matches_plain_on_card(cuda, t, n, i, h):
 
 
 @pytest.mark.cuda
-def test_gru_scan_step_reproduces_the_cell_on_card(cuda):
+@pytest.mark.parametrize("n", [50, 300, 1500])
+def test_gru_scan_step_reproduces_the_cell_on_card(cuda, n):
     """At T = 1 on a bf16-valued h the scan kernel sums as the cell kernel
-    does: its h' rounded to bf16 is the cell's output."""
-    xs, h0, ops = gru_scan_operands(1, 300, 1027, 600, torch.bfloat16)
+    does (one K schedule; its h_lo half is zero): its h' rounded to bf16 is
+    the cell's output, at the learner's 50 rows and at the 1500 of the
+    world-model update's backward."""
+    xs, h0, ops = gru_scan_operands(1, n, 1027, 600, torch.bfloat16)
     xs, ops = xs.to(cuda), [o.to(cuda) for o in ops]
     h16 = h0.to(cuda, torch.bfloat16)
     out = gru_scan(xs, h16.float(), *ops)
     assert torch.equal(out[0][0].to(torch.bfloat16), gru_cell(xs[0], h16, *ops))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["cell", "scan"])
+def test_gru_rows_do_not_depend_on_their_launch_on_card(cuda, kernel):
+    """The 1500 rows of one launch (the many-rows plan) equal 30 launches of
+    50 rows each (the few-rows plan) bit for bit: an output's sums do not
+    depend on the tile plan, as hold_observe and hold_scan need."""
+    xs, h0, ops = gru_scan_operands(1, 1500, 1027, 600, torch.bfloat16, seed=3)
+    x, ops = xs[0].to(cuda), [o.to(cuda) for o in ops]
+    if kernel == "cell":
+        h = h0.to(cuda, torch.bfloat16)
+        whole = gru_cell(x, h, *ops)
+        parts = torch.cat([gru_cell(x[i:i + 50], h[i:i + 50], *ops) for i in range(0, 1500, 50)])
+        assert torch.equal(whole, parts)
+    else:
+        h = h0.to(cuda)  # f32, not bf16-valued: the h_lo half works too
+        whole = gru_scan(x[None], h, *ops)
+        parts = [gru_scan(x[None, i:i + 50], h[i:i + 50], *ops) for i in range(0, 1500, 50)]
+        for k in range(len(whole)):
+            assert torch.equal(whole[k], torch.cat([p[k] for p in parts], dim=1)), k
+
+
+@pytest.mark.cuda
+def test_gru_plan_is_the_kernels_on_card(cuda):
+    """The C source's plan (``dt_gru_plan``) is ``gru_plan`` at every form
+    the path and the tests launch; the wrappers refuse a shape where not."""
+    for n, t, i, h in ((1, 1, 1027, 600), (50, 1, 1027, 600), (64, 1, 1027, 600),
+                       (65, 1, 1027, 600), (1500, 1, 1027, 600), (50, 30, 1027, 600),
+                       (10, 5, 37, 29), (3, 1, 13, 11)):
+        for scan in (False, True):
+            if t > 1 and not scan:
+                continue
+            gru_cuda._plans.pop((n, t, i, h, scan), None)
+            assert gru_cuda.checked_plan(n, t, i, h, scan) == gru_cuda.gru_plan(n, t, i, h, scan)
 
 
 @pytest.mark.cuda
