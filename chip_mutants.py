@@ -37,6 +37,20 @@ biases drawn:
   loads its last weight K-chunk as zeros, dropping those products;
 - ``enc_bias``: layer 2's bias (its input has 64 channels) is dropped.
 
+The whole-rollout imagination (``csrc/imagine.cu``), held by ``imagine``:
+``imagine_cuda.hold_rollout`` (a B 50 x T 30 rollout relaunched at T = 1
+from its own states, bit for bit, and held to the plain step) and
+``hold_steps`` (the plain rollout's 1500 states as one T = 1 launch) at the
+flagship widths, at the init's nearly flat prior and at a peaked one, on
+``chip_smoke.imagine_setup``'s operands:
+
+- ``im_barrier``: the grid barrier after stage S2 (actor Dense_1) is left
+  out, so S3 may read LayerNorm_1's input before every block wrote it;
+- ``im_action``: the action's rows of W_i are left out of gi;
+- ``im_a0_k``: actor Dense_0 loses the products of its last 128 rows of h
+  (its h part's last K chunk);
+- ``im_unimix``: the sampler drops the 1% unimix.
+
 Exits non-zero unless the right kernels pass every check and each faulty one
 fails at least one.  Needs a CUDA device and nvcc; the checkout is not
 modified.
@@ -70,6 +84,20 @@ MUTANTS = {
                    ("encoder",)),
     "enc_bias": ("encoder.cu", "  return n < p.Co ? __ldg(p.b + n) : 0.0f;\n",
                  "  return n < p.Co && p.Cs != 64 ? __ldg(p.b + n) : 0.0f;\n", ("encoder",)),
+    "im_barrier": ("imagine.cu",
+                   "      if (t + 1 < d.T || st < 5) grid_sync(o.count, ++barriers * gridDim.x);\n",
+                   "      if ((t + 1 < d.T || st < 5) && st != 1) grid_sync(o.count, ++barriers * gridDim.x);\n",
+                   ("imagine",)),
+    "im_action": ("imagine.cu",
+                  "        for (int k = 0; k < tail; ++k) s = fmaf(xt[r * tail + k], c[1 + k], s);\n",
+                  "        for (int k = 0; k < tail - w.A; ++k) s = fmaf(xt[r * tail + k], c[1 + k], s);\n",
+                  ("imagine",)),
+    "im_a0_k": ("imagine.cu",
+                "      if (col < w.AH1) s = {o.a0w + (size_t)col * d.K_a0, w.H, d.H16, w.Z, w.H, o.a0b[col]};\n",
+                "      if (col < w.AH1) s = {o.a0w + (size_t)col * d.K_a0, w.H - kKC, d.H16, w.Z, w.H, o.a0b[col]};\n",
+                ("imagine",)),
+    "im_unimix": ("imagine.cu", "    const float p = d.keep * (e / s) + d.mix;\n",
+                  "    const float p = e / s;\n", ("imagine",)),
 }
 
 SCAN_CHECK = r'''
@@ -159,14 +187,38 @@ for n, rounding in ((1, "serve"), (50, "serve"), (64, "serve"), (1250, "train"),
           flush=True)
 print(f"mutants: {name} checks failed {failed}", flush=True)
 '''
-CHECKS = {"scan": SCAN_CHECK, "cell": CELL_CHECK, "encoder": ENCODER_CHECK}
+IMAGINE_CHECK = r'''
+import sys, torch
+sys.path.append(sys.argv[2])  # chip_smoke.py, after the package under test
+from chip_smoke import CONFIG, PEAKED_PRIOR, imagine_setup
+from dreamer_tpu_torch.config import DreamerConfig
+from dreamer_tpu_torch.ops import imagine_cuda as ic
+
+name, failed = sys.argv[1], 0
+cfg = DreamerConfig.from_yaml(str(CONFIG))  # the flagship: B 50 x T 30, GRU 600, 32 x 32
+c, a = cfg.wm, cfg.agent
+for scale in (1.0, PEAKED_PRIOR):  # the init's nearly flat prior, and a peaked one
+    w, h0, z0, eps, gum = imagine_setup(cfg, scale)
+    out = ic.imagine_rollout(h0, z0, eps, gum, w, c.unimix, a.min_std)
+    held = ic.hold_rollout(out, eps, gum, w, c.unimix, a.min_std)
+    ref = ic.imagine_rollout_plain(h0, z0, eps, gum, w, c.unimix, a.min_std)
+    steps = ic.hold_steps(ref[2], ref[3], eps, gum, w, c.unimix, a.min_std)[0]
+    bad = len(held["failures"]) + len(steps["failures"])
+    failed += bad
+    print(f"mutants: {name} imagine (prior x {scale:g}): hold_rollout carry mismatches "
+          f"{int(held['carry_mismatches'])}, failures {len(held['failures'])}; hold_steps "
+          f"failures {len(steps['failures'])} -> {'FAILS' if bad else 'passes'}", flush=True)
+print(f"mutants: {name} checks failed {failed}", flush=True)
+'''
+CHECKS = {"scan": SCAN_CHECK, "cell": CELL_CHECK, "encoder": ENCODER_CHECK,
+          "imagine": IMAGINE_CHECK}
 
 
 def run(name: str, package_parent: Path, check: str) -> int:
     """The number of failed checks of one version of the kernels under
     ``package_parent`` by the check ``check``."""
     env = dict(os.environ, PYTHONPATH=str(package_parent))
-    out = subprocess.run([sys.executable, "-c", CHECKS[check], name], env=env,
+    out = subprocess.run([sys.executable, "-c", CHECKS[check], name, str(ROOT)], env=env,
                          cwd=package_parent,
                          capture_output=True, text=True, timeout=600)
     sys.stdout.write(out.stdout)

@@ -33,13 +33,18 @@ Phases, each printing its lines; any failure exits non-zero:
             step and the kernels that take the most device time.
 6. imagine: the whole-rollout imagination kernel against its plain version at
             the flagship shapes (B 50, T 30), at the init's nearly flat prior
-            and at a peaked one: the whole rollout (first step whose
-            categories differ, share of equal categories); the launch itself
-            held step by step (``imagine_cuda.hold_rollout``: relaunched at
-            T = 1 over its own 1500 pre-step states, which must reproduce it
-            bit for bit, and that step held to the plain step by
-            ``compare_step``, near ties counted); the plain rollout's states
-            as one T = 1 launch (``hold_steps``); times and bound.
+            and at a peaked one, and at the drone's widths
+            (configs/drone.yaml: B 128, GRU 1024, hiddens 400, 4 actions):
+            the whole rollout (first step whose categories differ, share of
+            equal categories); the launch itself held step by step
+            (``imagine_cuda.hold_rollout``: relaunched at T = 1 over its own
+            T x B pre-step states, which must reproduce it bit for bit, and
+            that step held to the plain step by ``compare_step``, near ties
+            counted); the plain rollout's states as one T = 1 launch
+            (``hold_steps``); the HMMA count of the kernel's SASS; times and
+            bound at B 50 x T 30, at T 1 x 1500 rows (``hold_steps``' form)
+            and at the drone's B 128 x T 30, with the plan's blocks, SMs and
+            grid barriers a step.
 7. ac_step: the learner's actor-critic half, Trainer.ac_step on a filled
             replay ring at the flagship widths (B 50, T 50, warm start 25,
             horizon 30, 2 epochs): 1 warm-up and 5 timed steps, the launch
@@ -82,6 +87,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "car_racer.yaml"
+DRONE = ROOT / "configs" / "drone.yaml"
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM bandwidth and dense bf16 tensor-core rate.
@@ -108,6 +114,9 @@ AC_RING = 200
 # the plain version's categories.  The per-step check runs again with the
 # prior's output layer scaled by this (mean top probability about 0.7).
 PEAKED_PRIOR = 8.0
+# The imagination kernel spreads one launch over the whole card: at least
+# this many SMs (an H100 has 114 or 132).
+MIN_IMAGINE_SMS = 100
 # Card against CPU for one ac_update, relative, on the losses and gradient
 # norms: the card's kernels and the CPU's plain versions round differently in
 # bf16 and may sample another latent category at a near tie, in the warm
@@ -721,56 +730,106 @@ def check_imagine(cfg, card: str) -> dict:
     peaked one: each whole-rollout launch held step by step
     (``hold_rollout``: relaunched at T = 1 from its own states, equal bit
     for bit, and held to the plain step), and the plain rollout's states as
-    one T = 1 launch over 1500 rows (``hold_steps``)."""
+    one T = 1 launch over 1500 rows (``hold_steps``); the same at the
+    drone's widths (configs/drone.yaml, B 128); times at B 50 x T 30, at
+    T 1 x 1500 rows and at the drone's B 128 x T 30; at each, from one
+    launch's record, the blocks that ran, the SMs they ran on (at least
+    MIN_IMAGINE_SMS) and the grid barriers they crossed (the plan's
+    BARRIERS_PER_STEP a step); the tensor-core instructions in the kernel's
+    SASS."""
     import torch
 
+    from dreamer_tpu_torch.config import DreamerConfig
     from dreamer_tpu_torch.ops import imagine_cuda as ic
 
-    c, a = cfg.wm, cfg.agent
-    held = []
-    for scale in (1.0, PEAKED_PRIOR):
-        weights, h0, z0, eps, gum = imagine_setup(cfg, scale)
-        T, B = eps.shape[:2]
-        out = ic.imagine_rollout(h0, z0, eps, gum, weights, c.unimix, a.min_std)
-        torch.cuda.synchronize()
-        shapes = [(B, c.hidden_dim), (B, c.latent_dim), (T, B, c.hidden_dim),
-                  (T, B, c.latent_dim), (T, B, 3), (T, B, 3), (T, B, 3)]
-        for name, o, shape in zip(ic.NAMES, out, shapes):
-            if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
-                fail(f"imagine: {name} is {tuple(o.shape)} or not finite")
-        if out[4].abs().max() > 1.0:
-            fail("imagine: action outside [-1, 1]")
-        one_hot_rows(out[3].reshape(T * B, -1), c, "imagine: z_seq")
-        ref = ic.imagine_rollout_plain(h0, z0, eps, gum, weights, c.unimix, a.min_std)
-        plain = ic.hold_steps(ref[2], ref[3], eps, gum, weights, c.unimix, a.min_std)[0]
-        prior = (f"prior output x {scale:g}, mean top prior probability "
-                 f"{plain['mean_top_prob']:.3f}")
-        agree = ic.rollout_agreement(out, ref, c.latent_rows, c.latent_classes)
-        print(f"imagine: whole rollout B={B} T={T} ({prior}), kernel vs plain: first step whose "
-              f"categories differ {agree['first_step_differs']} (-1: none), equal categories "
-              f"{agree['equal_share']:.5f}", flush=True)
-        held.append(report_hold(ic.hold_rollout(out, eps, gum, weights, c.unimix, a.min_std),
-                                f"the kernel's B={B} T={T} rollout; {prior}"))
-        held.append(report_hold(plain, f"the plain rollout's states; {prior}"))
-        if scale == 1.0:
-            timed = weights, h0, z0, eps, gum
+    hmma = sass_hmma("imagine_kernel")
+    print("kernels: imagine SASS tensor-core instructions: "
+          + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
+    if not hmma or not all(hmma.values()):
+        fail(f"imagine: the imagine_kernel SASS has no HMMA: {hmma}")
+    held, timed = [], {}
+    drone = DreamerConfig.from_yaml(str(DRONE))
+    for name, conf, scales in (("flagship", cfg, (1.0, PEAKED_PRIOR)), ("drone", drone, (1.0,))):
+        c, a = conf.wm, conf.agent
+        for scale in scales:
+            weights, h0, z0, eps, gum = imagine_setup(conf, scale)
+            T, B, A = eps.shape
+            out = ic.imagine_rollout(h0, z0, eps, gum, weights, c.unimix, a.min_std)
+            torch.cuda.synchronize()
+            shapes = [(B, c.hidden_dim), (B, c.latent_dim), (T, B, c.hidden_dim),
+                      (T, B, c.latent_dim), (T, B, A), (T, B, A), (T, B, A)]
+            for key, o, shape in zip(ic.NAMES, out, shapes):
+                if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
+                    fail(f"imagine {name}: {key} is {tuple(o.shape)} or not finite")
+            if out[4].abs().max() > 1.0:
+                fail(f"imagine {name}: action outside [-1, 1]")
+            one_hot_rows(out[3].reshape(T * B, -1), c, f"imagine {name}: z_seq")
+            ref = ic.imagine_rollout_plain(h0, z0, eps, gum, weights, c.unimix, a.min_std)
+            plain = ic.hold_steps(ref[2], ref[3], eps, gum, weights, c.unimix, a.min_std)[0]
+            prior = (f"{name} widths, prior output x {scale:g}, mean top prior probability "
+                     f"{plain['mean_top_prob']:.3f}")
+            agree = ic.rollout_agreement(out, ref, c.latent_rows, c.latent_classes)
+            print(f"imagine: whole rollout B={B} T={T} ({prior}), kernel vs plain: first step "
+                  f"whose categories differ {agree['first_step_differs']} (-1: none), equal "
+                  f"categories {agree['equal_share']:.5f}", flush=True)
+            held.append(report_hold(ic.hold_rollout(out, eps, gum, weights, c.unimix, a.min_std),
+                                    f"the kernel's B={B} T={T} rollout; {prior}"))
+            held.append(report_hold(plain, f"the plain rollout's states; {prior}"))
+            if scale == 1.0:
+                timed[name] = weights, h0, z0, eps, gum, c, a
     worst = max(s[f"max_abs_err_{k}"] for s in held for k in ("h_next", "mu", "sigma", "action"))
-    weights, h0, z0, eps, gum = timed
-    t = {"ms": cuda_ms(lambda: ic.imagine_rollout(h0, z0, eps, gum, weights, c.unimix,
-                                                  a.min_std), 20),
-         "plain_ms": cuda_ms(lambda: ic.imagine_rollout_plain(h0, z0, eps, gum, weights,
-                                                              c.unimix, a.min_std), 5, 1),
-         "library_ms": None}
-    nbytes, flops = ic.bound_numbers(B, T, weights, ic.dims_of(weights, h0, z0, eps))
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"imagine: B={B} T={T} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-          f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}: {nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.2f} GFLOP) library_ms=null; {B} blocks on {sms} SMs "
-          f"({100 * min(B, sms) / sms:.0f}% of the SMs) on {card}", flush=True)
-    return {"name": "imagine_rollout", "route": "cuda",
-            "source": "dreamer_tpu_torch/csrc/imagine.cu",
-            "replaces": "dreamer_tpu/ops/imagine_pallas.py:334", "max_abs_err": worst, **t}
+    line = {}
+    # The learner's form (B 50 x T 30), hold_steps' form (T 1 over its 1500
+    # rows) and the drone's (B 128 x T 30).
+    for form in ("path", "T1", "drone"):
+        weights, h0, z0, eps, gum, c, a = timed["drone" if form == "drone" else "flagship"]
+        if form == "T1":
+            T, B = eps.shape[:2]
+            gen = torch.Generator(device="cuda").manual_seed(21)
+            h0 = torch.randn(T * B, h0.shape[1], generator=gen, device="cuda").tanh()
+            z0 = z0.repeat(T, 1)
+            eps, gum = eps.reshape(1, T * B, -1), gum.reshape(1, T * B, *gum.shape[2:])
+        T, B = eps.shape[:2]
+        kernel = lambda: ic.imagine_rollout(h0, z0, eps, gum, weights, c.unimix,  # noqa: E731
+                                            a.min_std)
+        t = {"ms": cuda_ms(kernel, 20),
+             "plain_ms": cuda_ms(lambda: ic.imagine_rollout_plain(h0, z0, eps, gum, weights,
+                                                                  c.unimix, a.min_std),
+                                 5 if T > 1 else 20, 1),
+             "library_ms": None}
+        dev = device_ms(kernel, "imagine_kernel", 1, reps=10)
+        t["device_ms"] = dev[0] if dev else None
+        dims = ic.dims_of(weights, h0, z0, eps)
+        nbytes, flops = ic.bound_numbers(B, T, weights, dims)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+        plan = ic.imagine_plan(ic.widths_of(dims, c.latent_rows, c.latent_classes), sms)
+        rec = ic.launch_record(ic._launch(h0, z0, eps, gum, weights, c.unimix, a.min_std,
+                                          sms)[1])
+        t["blocks"], t["sms"] = rec["blocks"], rec["sms"]
+        t["barriers_per_step"] = rec["barriers"] / T
+        print(f"imagine: {form} B={B} T={T} kernel_ms={t['ms']:.4f} (device "
+              f"{fmt_ms(t['device_ms'])}) plain_ms={t['plain_ms']:.4f} "
+              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP) library_ms=null; one cooperative launch: "
+              f"{rec['blocks']} blocks of {ic.THREADS} threads ran on {rec['sms']} of {sms} "
+              f"SMs and crossed {t['barriers_per_step']:g} grid barriers a step (its "
+              f"record), weights {'resident' if plan.stationary else 'streamed'} "
+              f"({plan.weight_bytes} B of {plan.smem} B smem a block) on {card}", flush=True)
+        if (rec["blocks"] != plan.blocks or rec["sms"] < MIN_IMAGINE_SMS
+                or rec["count"] != plan.blocks * ic.BARRIERS_PER_STEP * T):
+            fail(f"imagine {form}: the launch's record {rec} is not {plan.blocks} blocks on at "
+                 f"least {MIN_IMAGINE_SMS} SMs through {ic.BARRIERS_PER_STEP} barriers a step")
+        line[form] = t
+    # The line's times are at the learner's form, B 50 x T 30.
+    out = {"name": "imagine_rollout", "route": "cuda",
+           "source": "dreamer_tpu_torch/csrc/imagine.cu",
+           "replaces": "dreamer_tpu/ops/imagine_pallas.py:334", "max_abs_err": worst,
+           **line["path"], "sass_hmma": sum(hmma.values())}
+    for form, key in (("T1", "T1_B1500"), ("drone", "drone_B128_T30")):
+        for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
+            out[f"{k}_at_{key}"] = line[form][k]
+    return out
 
 
 def one_hot_rows(z, c, name: str) -> None:

@@ -1,6 +1,6 @@
 """The whole-rollout imagination kernel (``csrc/imagine.cu``), its plain
-PyTorch version, the kernel's weight layout and the check that holds one
-against the other.
+PyTorch version, the kernel's weight layout, its launch plan and the check
+that holds one against the other.
 
 Replaces ``imagine_rollout_pallas`` (``dreamer_tpu/ops/imagine_pallas.py:281-348``,
 kernel ``_imagine_kernel`` ``:181-279``): the H-step dream of an actor-critic
@@ -12,10 +12,14 @@ CPU tensors; it never falls back from one to the other.
 ``imagine_rollout.launches`` counts the kernel's launches.
 
 Bound at the flagship shapes (B 50, T 30, GRU 600, 32x32 latents, hiddens
-200): 11 GFLOP (2 B T x 3.66 M weights) and 23 MB (7.3 MB of bf16 weights,
+200): 11 GFLOP (2 B T x 3.66 M weights) and 24 MB (7.3 MB of bf16 weights,
 9.8 MB of f32 outputs, 6.1 MB of gumbels), 0.011 ms at the card's bf16 peak.
-The design (one block per trajectory, the time loop inside it, weights read
-from L2 in a per-output-row layout) is described in the kernel's source.
+The kernel is one persistent cooperative launch, one block on every SM, each
+block holding its slice of every layer's output columns in shared memory for
+all T steps, six stages a step with a grid barrier after each; its source
+describes it.  ``imagine_plan`` gives each block its columns from the widths
+and the block count alone, and the C source's own plan (``dt_imagine_plan``)
+must equal it before a shape's first launch.
 
 Both versions round where the Pallas kernel rounds, not where the XLA scan
 does: a Dense accumulates in f32, rounds to the compute dtype and adds the
@@ -27,12 +31,13 @@ the two coincide with the XLA scan.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from dreamer_tpu_torch.ops import cuda_build
+from dreamer_tpu_torch.ops.gru_cuda import check_aligned
 
 # The kernel against ``imagine_rollout_plain`` for one step, in bf16.  Both
 # sum in f32 in another order and round each Dense output to bf16, so a sum
@@ -55,9 +60,10 @@ NEAR_TIE = 0.1
 STE_ATOL = 2.0 ** -22
 MIN_RESIDUAL_SHARE = 0.1
 
-_P = ctypes.c_void_p
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, ctypes.c_float, ctypes.c_float, _P]
 N_WEIGHTS = 26
+N_SCRATCH = 9  # the launch's record, x, four Dense outputs, two GRU sums, the plan
 NAMES = ("h_fin", "z_fin", "h_seq", "z_seq", "a_seq", "mu_seq", "sig_seq")
 
 
@@ -231,6 +237,275 @@ def imagine_rollout_plain(h0, z0, eps, gum, weights, unimix: float, min_std: flo
 
 
 # --------------------------------------------------------------------------- #
+# The kernel's plan
+# --------------------------------------------------------------------------- #
+
+# Threads of every block; rows of a row group (four m16 tiles); k of a ring
+# chunk; k slices (the warps that sum one output); n8 tiles of a pass; the most
+# shared memory a block may have on an H100; the fixed shared-memory regions
+# (a chunk of the activation ring and the fewest chunks it has, the logit
+# tile, the LayerNorm statistics); the table's header, block and group
+# records (csrc/imagine.cu).
+THREADS = 512
+ROWS = 64
+KC = 128
+SLICES = 4
+MAX_NT = 5
+SMEM_LIMIT = 232448
+CHUNK_BYTES = ROWS * KC * 2
+MIN_SLOTS = 4
+STAT_BYTES = ROWS * 2 * 4
+HEADER, BLOCK_FIELDS, GROUP_FIELDS = 8, 9, 4 + 3 * MAX_NT
+# Grid barriers a step: after each of its six stages.  The last step's last
+# one is left out and one comes before the first step, so a launch of T steps
+# crosses 6 T.
+BARRIERS_PER_STEP = 6
+# The kinds of column tile, numbered as the C source's enum: S1 (actor
+# Dense_0, the GRU's W_h and W_i's z rows), S2 (actor Dense_1), S4-S6 (the
+# prior's three Dense layers, the last by latent row), S3 (the mu and sigma
+# heads, in every block).
+A0, WH, WI, A1, D0, D1, D2, HD = range(8)
+KINDS = ("a0", "wh", "wi", "a1", "d0", "d1", "d2", "hd")
+
+
+class Widths(NamedTuple):
+    """The widths a plan depends on."""
+
+    H: int
+    Z: int
+    rows: int
+    classes: int
+    A: int
+    AH1: int
+    AH2: int
+    DH1: int
+    DH2: int
+
+
+def _r16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def widths_of(d: Dims, rows: int, classes: int) -> Widths:
+    return Widths(d.H, d.Z, rows, classes, d.A, d.AH1, d.AH2, d.DH1, d.DH2)
+
+
+def k_range(w: Widths, kind: int) -> Tuple[int, int]:
+    """The k range of a kind's products in its activation buffer: S1 and S4
+    read x = [bf16 h, zeros to round16(H) | bf16 z, zeros to round16(Z)],
+    the others a LayerNorm of a Dense output, zero past its width."""
+    h16 = _r16(w.H)
+    return {A0: (0, h16 + _r16(w.Z)), WH: (0, h16), D0: (0, h16),
+            WI: (h16, h16 + w.Z // 16 * 16), A1: (0, _r16(w.AH1)), D1: (0, _r16(w.DH1)),
+            D2: (0, _r16(w.DH2)), HD: (0, _r16(w.AH2))}[kind]
+
+
+def tile_bytes(w: Widths, kind: int) -> int:
+    """A tile in shared memory: 8 weight rows of its k range and 16 bytes,
+    then its 8 columns' f32 biases."""
+    k0, k1 = k_range(w, kind)
+    return 8 * ((k1 - k0) * 2 + 16) + 32
+
+
+def d2_tiles(w: Widths, lr: int) -> range:
+    """The n8 tiles of the prior's output layer that hold latent row lr."""
+    return range(lr * w.classes // 8, ((lr + 1) * w.classes - 1) // 8 + 1)
+
+
+def ring_slots(w: Widths) -> int:
+    """Ring chunks: a whole LayerNorm input row group, and after a pass the
+    slice sums then the logits, at least MIN_SLOTS."""
+    sums = SLICES * ROWS * MAX_NT * 8 * 4 + ROWS * max(MAX_NT * 8, 2 * w.A) * 4
+    return max(MIN_SLOTS, _cdiv(max(w.AH1, w.AH2, w.DH1, w.DH2), KC), _cdiv(sums, CHUNK_BYTES))
+
+
+def smem_bytes(w: Widths, weight_bytes: int, umax: int, ngmax: int, stationary: bool) -> int:
+    """A block's shared memory: the weights, then the ring (which after a
+    pass holds the slice sums and the logits), the LayerNorm statistics, its
+    scale and bias, a row group's eps and W_i's tail inputs, and when the
+    weights are resident b_i and W_i's tail rows of the block's GRU columns
+    and the block's part of the plan's table."""
+    tail = w.Z - w.Z // 16 * 16 + w.A
+    slots = ring_slots(w)
+    return ((weight_bytes + 127) // 128 * 128 + slots * CHUNK_BYTES
+            + STAT_BYTES + 2 * slots * KC * 4
+            + _r16(ROWS * (w.A + tail) * 4)
+            + (_r16(3 * umax * (tail + 1) * 4) + _r16((BLOCK_FIELDS + ngmax * GROUP_FIELDS) * 4)
+               if stationary else 0))
+
+
+def k_schedule(w: Widths, kind: int) -> Tuple[Tuple[int, ...], ...]:
+    """The order in which the kernel sums each output of a kind: for each k
+    slice s, the k16 steps (their first k in the activation buffer) whose
+    index is s mod SLICES, ascending; the slice sums are then added in slice
+    order.  It depends on the widths alone."""
+    k0, k1 = k_range(w, kind)
+    return tuple(tuple(k for k in range(k0, k1, 16) if (k // 16) % SLICES == s)
+                 for s in range(SLICES))
+
+
+class Group(NamedTuple):
+    """One pass: up to MAX_NT tiles over one k range."""
+
+    tiles: Tuple[Tuple[int, int, int], ...]  # (kind, index, shared-memory offset)
+    k0: int
+    k1: int
+    latent_row: int                          # S6: the latent row it samples; else -1
+
+
+class ImaginePlan(NamedTuple):
+    blocks: int
+    stationary: bool    # every block's weights resident for all T steps
+    smem: int           # bytes of dynamic shared memory of every block
+    weight_bytes: int   # the weights' region: a block's all, or the largest group
+    stages: Tuple[Tuple[Tuple[Group, ...], ...], ...]  # [block][S1 .. S6]
+    gru: Tuple[Tuple[int, int], ...]                   # [block]: its GRU units [u0, u1)
+    table: Tuple[int, ...]                             # as dt_imagine_plan writes it
+
+
+def imagine_plan(w: Widths, blocks: int) -> ImaginePlan:
+    """The kernel's launch over ``blocks`` blocks at widths ``w``: the same
+    arithmetic as ``make_plan`` in ``csrc/imagine.cu``.  The GRU's hidden
+    units split evenly (block b: [H b / nb, H (b + 1) / nb), its r, z and n
+    columns packed into n8 tiles); every other layer's n8 tiles, and the
+    prior output's latent rows, go one by one to the block holding the fewest
+    weight bytes so far (the first on a tie); every block has the heads'
+    tiles (S3).  A block's tiles of one stage form passes of MAX_NT (S6: one
+    latent row a pass).  Stationary when every block's tiles fit in shared
+    memory beside the fixed regions; else each pass copies its tiles into a
+    window first, with fewer tiles a pass where MAX_NT would not fit."""
+    nb = blocks
+    if nb < 1 or min(w) < 1 or w.classes > 32 or w.rows * w.classes != w.Z:
+        raise ValueError(f"imagine_plan: the kernel does not take widths {w} over {nb} blocks")
+    zf = w.Z // 16 * 16
+    gru_kinds = (WH, WI) if zf else (WH,)
+    heads = _cdiv(2 * w.A, 8)
+    gru = [(w.H * b // nb, w.H * (b + 1) // nb) for b in range(nb)]
+    held = [_cdiv(3 * (u1 - u0), 8) * sum(tile_bytes(w, k) for k in gru_kinds)
+            + heads * tile_bytes(w, HD) for u0, u1 in gru]
+    own: Dict[Tuple[int, int], List[int]] = {}
+    for kind, units in ((A0, _cdiv(w.AH1, 8)), (A1, _cdiv(w.AH2, 8)), (D0, _cdiv(w.DH1, 8)),
+                        (D1, _cdiv(w.DH2, 8)), (D2, w.rows)):
+        for i in range(units):
+            best = min(range(nb), key=lambda b: (held[b], b))
+            own.setdefault((kind, best), []).append(i)
+            held[best] += (len(d2_tiles(w, i)) if kind == D2 else 1) * tile_bytes(w, kind)
+
+    def build(cap):
+        """[block][stage] -> [(tiles, latent row)], at most cap tiles a pass."""
+        def passes(tiles):
+            return [(tiles[s:s + cap], -1) for s in range(0, len(tiles), cap)]
+
+        raw = []
+        for b, (u0, u1) in enumerate(gru):
+            gt = _cdiv(3 * (u1 - u0), 8)
+            s1 = [(A0, i) for i in own.get((A0, b), [])] + [(k, j) for k in gru_kinds
+                                                             for j in range(gt)]
+            stages = [passes(s1)]
+            for kind in (A1, HD, D0, D1):
+                stages.append(passes([(HD, j) for j in range(heads)] if kind == HD
+                                     else [(kind, i) for i in own.get((kind, b), [])]))
+            stages.append([([(D2, i) for i in d2_tiles(w, lr)], lr)
+                           for lr in own.get((D2, b), [])])
+            raw.append(stages)
+        return raw
+
+    nbytes = lambda tiles: sum(tile_bytes(w, k) for k, _ in tiles)  # noqa: E731
+    group_max = lambda raw: max([nbytes(t) for stages in raw for st in stages  # noqa: E731
+                                 for t, _ in st] + [0])
+    umax = max(u1 - u0 for u0, u1 in gru)
+    ngmax = lambda raw: max(sum(len(st) for st in stages) for stages in raw)  # noqa: E731
+    limit = SMEM_LIMIT
+    cap = MAX_NT
+    raw = build(cap)
+    block_max = max(sum(nbytes(t) for st in stages for t, _ in st) for stages in raw)
+    stationary = smem_bytes(w, block_max, umax, ngmax(raw), True) <= limit
+    # Streamed: fewer tiles a pass until the largest pass's window fits.
+    while (not stationary and smem_bytes(w, group_max(raw), umax, ngmax(raw), False) > limit
+           and cap > 1):
+        cap -= 1
+        raw = build(cap)
+    wbytes = block_max if stationary else group_max(raw)
+    smem = smem_bytes(w, wbytes, umax, ngmax(raw), stationary)
+    if smem > limit:
+        raise ValueError(f"imagine_plan: a pass of widths {w} needs {smem} bytes of shared "
+                         f"memory over {nb} blocks")
+    plan_stages, groups = [], []
+    for stages in raw:
+        off, block = 0, []
+        for st in stages:
+            row = []
+            for tiles, lr in st:
+                off = off if stationary else 0
+                placed = []
+                for kind, i in tiles:
+                    placed.append((kind, i, off))
+                    off += tile_bytes(w, kind)
+                ranges = [k_range(w, k) for k, _ in tiles]
+                row.append(Group(tuple(placed), min(r[0] for r in ranges),
+                                 max(r[1] for r in ranges), lr))
+            block.append(tuple(row))
+            groups.extend(row)
+        plan_stages.append(tuple(block))
+    table = [nb, int(stationary), smem, len(groups), wbytes, ring_slots(w), umax, ngmax(raw)]
+    n = 0
+    for block, (u0, u1) in zip(plan_stages, gru):
+        firsts = []
+        for st in block:
+            firsts.append(n)
+            n += len(st)
+        table += [*firsts, n, u0, u1]
+    for g in groups:
+        table += [len(g.tiles), g.k0, g.k1, g.latent_row]
+        for i in range(MAX_NT):
+            table += list(g.tiles[i]) if i < len(g.tiles) else [0, 0, 0]
+    return ImaginePlan(nb, stationary, smem, wbytes, tuple(plan_stages), tuple(gru),
+                       tuple(table))
+
+
+_plans: Dict[Tuple[Widths, int, int], Tuple[ImaginePlan, torch.Tensor]] = {}
+
+
+def c_plan_table(w: Widths, blocks: int) -> Tuple[int, ...]:
+    """The C source's plan table (``dt_imagine_plan``) for these widths."""
+    fn = cuda_build.kernel_fn("dt_imagine_plan", [_P, _I, _P, _I, _P])
+    cap = 1 << 16
+    while True:
+        out, n = (ctypes.c_int * cap)(), ctypes.c_int()
+        cuda_build.check(fn((ctypes.c_int * 9)(*w), blocks, out, cap, ctypes.byref(n)),
+                         "dt_imagine_plan")
+        if n.value <= cap:
+            return tuple(out[:n.value])
+        cap = n.value
+
+
+def checked_plan(w: Widths, blocks: int, device: torch.device
+                 ) -> Tuple[ImaginePlan, torch.Tensor]:
+    """``imagine_plan`` and its table on ``device``, held once per shape
+    against the plan the C source builds (``dt_imagine_plan``): a kernel
+    whose plan drifted from the Python one is refused."""
+    key = (w, blocks, device.index)
+    got = _plans.get(key)
+    if got is None:
+        plan = imagine_plan(w, blocks)
+        table = c_plan_table(w, blocks)
+        if table != plan.table:
+            raise RuntimeError(f"imagine plan for {w} over {blocks} blocks: the C source's "
+                               f"table differs from imagine_plan's")
+        got = plan, torch.tensor(plan.table, dtype=torch.int32, device=device)
+        _plans[key] = got
+    return got
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# --------------------------------------------------------------------------- #
 # The kernel
 # --------------------------------------------------------------------------- #
 
@@ -284,21 +559,41 @@ def imagine_rollout(h0: torch.Tensor, z0: torch.Tensor, eps: torch.Tensor,
     _check(h0, z0, eps, gum, weights)
     if h0.device.type == "cpu":
         return imagine_rollout_plain(h0, z0, eps, gum, weights, unimix, min_std)
+    return _launch(h0, z0, eps, gum, weights, unimix, min_std)[0]
+
+
+def _launch(h0, z0, eps, gum, weights, unimix: float, min_std: float,
+            blocks: Optional[int] = None):
+    """The kernel over ``blocks`` blocks (one per SM unless given; the
+    outputs do not depend on it), for operands ``_check`` passed.
+    Returns the seven outputs and the launch's record, an int32 tensor on the
+    card that ``launch_record`` reads."""
     rows, classes = gum.shape[2:]
     if h0.device.type != "cuda" or weights[0].dtype != torch.bfloat16 or classes > 32:
         raise TypeError(f"imagine_rollout: the kernel takes bfloat16 weights on CUDA and "
                         f"at most 32 classes, got {weights[0].dtype} on {h0.device} with "
                         f"{classes} classes")
+    check_aligned("imagine_rollout", *(w for w in weights if w.dim() == 2))
     T, B, A = eps.shape
     d = dims_of(weights, h0, z0, eps)
+    w = widths_of(d, rows, classes)
+    blocks = blocks or sm_count(h0.device)
+    plan, table = checked_plan(w, blocks, h0.device)
     f32 = dict(dtype=torch.float32, device=h0.device)
+    b16 = dict(dtype=torch.bfloat16, device=h0.device)
     outs = (torch.empty(T, B, d.H, **f32), torch.empty(T, B, d.Z, **f32),
             torch.empty(T, B, A, **f32), torch.empty(T, B, A, **f32),
             torch.empty(T, B, A, **f32), torch.empty(B, d.H, **f32),
             torch.empty(B, d.Z, **f32))
-    ptrs = (ctypes.c_void_p * (N_WEIGHTS + 11))(
-        *[t.data_ptr() for t in (*weights, h0, z0, eps, gum, *outs)])
-    dims = (ctypes.c_int * 11)(B, T, d.H, d.Z, rows, classes, A, d.AH1, d.AH2, d.DH1, d.DH2)
+    # The launch's record (zeroed by the C entry on the stream), x, the four
+    # Dense outputs that a LayerNorm reads, the GRU's two f32 sums.
+    scratch = (torch.empty(1 + blocks, dtype=torch.int32, device=h0.device),
+               torch.empty(B, _r16(d.H) + _r16(d.Z), **b16),
+               *(torch.empty(B, _r16(n), **b16) for n in (d.AH1, d.AH2, d.DH1, d.DH2)),
+               torch.empty(B, 3 * d.H, **f32), torch.empty(B, 3 * d.H, **f32), table)
+    ptrs = (ctypes.c_void_p * (N_WEIGHTS + 11 + N_SCRATCH))(
+        *[t.data_ptr() for t in (*weights, h0, z0, eps, gum, *outs, *scratch)])
+    dims = (ctypes.c_int * 18)(B, T, *w, *plan.table[:1], *plan.table[1:3], *plan.table[4:8])
     fn = cuda_build.kernel_fn("dt_imagine_rollout", _ARGTYPES)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream(h0.device).cuda_stream
@@ -306,10 +601,21 @@ def imagine_rollout(h0: torch.Tensor, z0: torch.Tensor, eps: torch.Tensor,
     cuda_build.check(status, "dt_imagine_rollout")
     imagine_rollout.launches += 1
     h_seq, z_seq, a_seq, mu_seq, sig_seq, h_fin, z_fin = outs
-    return h_fin, z_fin, h_seq, z_seq, a_seq, mu_seq, sig_seq
+    return (h_fin, z_fin, h_seq, z_seq, a_seq, mu_seq, sig_seq), scratch[0]
 
 
 imagine_rollout.launches = 0
+
+
+def launch_record(record: torch.Tensor) -> Dict[str, int]:
+    """What one launch did, from its record (``_launch``): the blocks that
+    ran, the distinct SMs they ran on, and the grid barriers each block
+    crossed (the barrier's final count over the blocks; ``BARRIERS_PER_STEP``
+    times T for the kernel as designed)."""
+    r = record.cpu().tolist()
+    sms = [v - 1 for v in r[1:] if v]
+    return {"blocks": len(sms), "sms": len(set(sms)),
+            "barriers": r[0] // max(len(sms), 1), "count": r[0]}
 
 
 # --------------------------------------------------------------------------- #

@@ -35,6 +35,7 @@ from dreamer_tpu_torch.ops.imagine_cuda import (dense_rows, imagine_rollout,
 
 FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "configs", "car_racer.yaml")
+DRONE = os.path.join(os.path.dirname(FLAGSHIP), "drone.yaml")
 
 
 def gru_operands(n=5, i=13, h=11, dtype=torch.float32, seed=0):
@@ -69,16 +70,18 @@ def encoder_operands(n=3, size=32, filters=(4, 8), dtype=torch.float32, seed=0,
 def imagine_operands(shape, n=4, steps=6, dtype=torch.bfloat16, seed=0):
     """(h0, z0, eps, gum, weights, rows, classes, unimix, min_std) with every
     parameter that the init leaves zero drawn ~ N(0, 0.1): at the SMALL
-    widths of tests/test_imagine_pallas.py (8 x 16 latents) or the flagship's
-    (configs/car_racer.yaml)."""
+    widths of tests/test_imagine_pallas.py (8 x 16 latents), the flagship's
+    (configs/car_racer.yaml) or the drone's (configs/drone.yaml: GRU 1024,
+    hiddens 400, 4 actions)."""
     g = torch.Generator().manual_seed(seed)
-    cfg = DreamerConfig.from_yaml(FLAGSHIP)
-    c, hidden = cfg.wm, 200
+    cfg = DreamerConfig.from_yaml(DRONE if shape == "drone" else FLAGSHIP)
+    c, hidden, actions = cfg.wm, cfg.agent.actor_hidden_1, cfg.env.action_dim
     if shape == "small":
         c.hidden_dim, c.latent_rows, c.latent_classes = 64, 8, 16
         c.dyn_hidden_1 = c.dyn_hidden_2 = hidden = 24
-    nets = WMNets(c, 3, dtype, g)
-    actor = Actor(c.hidden_dim + c.latent_dim, 3, hidden, hidden, cfg.agent.min_std, dtype, g)
+    nets = WMNets(c, actions, dtype, g)
+    actor = Actor(c.hidden_dim + c.latent_dim, actions, hidden, hidden, cfg.agent.min_std, dtype,
+                  g)
     with torch.no_grad():
         for m in (nets, actor):
             for p in m.parameters():
@@ -88,7 +91,7 @@ def imagine_operands(shape, n=4, steps=6, dtype=torch.bfloat16, seed=0):
     h0 = torch.randn(n, c.hidden_dim, generator=g).tanh()
     z0 = torch.nn.functional.one_hot(torch.randint(0, c.latent_classes, (n, c.latent_rows),
                                                    generator=g), c.latent_classes)
-    eps = torch.randn(steps, n, 3, generator=g)
+    eps = torch.randn(steps, n, actions, generator=g)
     u = torch.rand(steps, n, c.latent_rows, c.latent_classes, generator=g).clamp_(min=1e-30)
     return (h0, z0.float().reshape(n, -1), eps, -torch.log(-torch.log(u)), weights,
             c.latent_rows, c.latent_classes, c.unimix, cfg.agent.min_std)
@@ -153,8 +156,11 @@ def test_imagine_on_cpu_is_the_plain_version(no_launch_counted):
 
 
 def _rollout_row_by_row(h0, z0, eps, gum, w, unimix, min_std):
-    """``imagine_rollout_plain`` one row at a time: like the kernel (one block
-    per row), its numbers do not depend on how many rows share the call."""
+    """``imagine_rollout_plain`` one row at a time, so that its numbers do not
+    depend on how many rows share the call: the kernel keeps that property
+    with one summation order per output fixed by the widths (each row in its
+    own lane of the tensor-core tiles, the k slices added in a fixed order),
+    whatever the rows, row groups and blocks of its launch."""
     outs = [imagine_rollout_plain(h0[i:i + 1], z0[i:i + 1], eps[:, i:i + 1], gum[:, i:i + 1],
                                   w, unimix, min_std) for i in range(h0.shape[0])]
     return tuple(torch.cat([o[k] for o in outs], dim=0 if k < 2 else 1) for k in range(7))
@@ -394,7 +400,8 @@ def test_each_mutant_changes_one_line_of_its_kernel_source():
     spec.loader.exec_module(mutants)
     srcs = {p.name: p.read_text() for p in cuda_build.files()}
     assert {m[0] for m in mutants.MUTANTS.values()} == {"gru_scan.cu", "gru_core.cuh",
-                                                        "encoder.cu"}
+                                                        "encoder.cu", "imagine.cu"}
+    assert sum(m[0] == "imagine.cu" for m in mutants.MUTANTS.values()) >= 3
     for source, good, bad, checks in mutants.MUTANTS.values():
         assert srcs[source].count(good) == 1 and bad != good
         assert checks and set(checks) <= set(mutants.CHECKS)
@@ -539,7 +546,8 @@ def test_float32_is_refused_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,n,steps", [("small", 4, 6), ("flagship", 50, 30)])
+@pytest.mark.parametrize("shape,n,steps", [("small", 4, 6), ("flagship", 50, 30),
+                                           ("drone", 128, 30)])
 def test_imagine_kernel_matches_plain_per_step_on_card(cuda, shape, n, steps):
     """The whole rollout on the card held step by step
     (``imagine_cuda.hold_rollout``: relaunched at T = 1 from its own states,
@@ -558,6 +566,75 @@ def test_imagine_kernel_matches_plain_per_step_on_card(cuda, shape, n, steps):
     ref = imagine_rollout_plain(h0, z0, eps, gum, w, unimix, min_std)
     stats = imagine_cuda.hold_steps(ref[2], ref[3], eps, gum, w, unimix, min_std)[0]
     assert stats["failures"] == [], stats
+
+
+def _launch_parts(args, w, unimix, min_std, parts):
+    """One rollout as ``parts`` launches over consecutive slices of its rows,
+    the outputs joined back along the rows."""
+    h0, z0, eps, gum = args
+    n = h0.shape[0] // parts
+    outs = [imagine_rollout(h0[i:i + n], z0[i:i + n], eps[:, i:i + n].contiguous(),
+                            gum[:, i:i + n].contiguous(), w, unimix, min_std)
+            for i in range(0, h0.shape[0], n)]
+    return tuple(torch.cat([o[k] for o in outs], dim=0 if k < 2 else 1) for k in range(7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["steps", "rollout"])
+def test_imagine_rows_do_not_depend_on_their_launch_on_card(cuda, form):
+    """Bit for bit: 1500 rows at T = 1 (``hold_steps``' launch) against 30
+    launches of 50, and a B 50 x T 30 rollout against two launches of 25
+    rows.  Each output's sums do not depend on which rows share its launch,
+    as ``hold_rollout`` needs."""
+    n, steps = (1500, 1) if form == "steps" else (50, 30)
+    h0, z0, eps, gum, w, rows, classes, unimix, min_std = imagine_operands(
+        "flagship", n, steps, seed=5)
+    args = [v.to(cuda).contiguous() for v in (h0, z0, eps, gum)]
+    w = [v.to(cuda) for v in w]
+    whole = imagine_rollout(*args, w, unimix, min_std)
+    parts = _launch_parts(args, w, unimix, min_std, 30 if form == "steps" else 2)
+    for k, name in enumerate(imagine_cuda.NAMES):
+        assert torch.equal(whole[k], parts[k]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks", [("flagship", 66), ("flagship", 1), ("drone", 50)])
+def test_imagine_block_count_does_not_change_bits_on_card(cuda, shape, blocks):
+    """The same rollout over fewer blocks than SMs, bit for bit: at 66
+    blocks the flagship's slices still stay in shared memory, at one block
+    and at the drone's widths over 50 they do not fit and each pass copies
+    its weights in again.  Each launch's record shows every block of its
+    plan run, each on an SM of its own, through every barrier of the 30
+    steps."""
+    n = 128 if shape == "drone" else 50
+    h0, z0, eps, gum, w, rows, classes, unimix, min_std = imagine_operands(shape, n, 30, seed=6)
+    args = [v.to(cuda) for v in (h0, z0, eps, gum)]
+    w = [v.to(cuda) for v in w]
+    plan = imagine_cuda.imagine_plan(imagine_cuda.widths_of(
+        imagine_cuda.dims_of(w, *args[:2], args[2]), rows, classes), blocks)
+    assert plan.stationary == ((shape, blocks) == ("flagship", 66))
+    sms = imagine_cuda.sm_count(args[0].device)
+    whole, record = imagine_cuda._launch(*args, w, unimix, min_std, sms)
+    fewer, fewer_record = imagine_cuda._launch(*args, w, unimix, min_std, blocks)
+    for nb, rec in ((sms, record), (blocks, fewer_record)):
+        got = imagine_cuda.launch_record(rec)
+        assert (got["blocks"], got["sms"]) == (nb, nb), got
+        assert got["count"] == nb * imagine_cuda.BARRIERS_PER_STEP * 30, got
+    for k, name in enumerate(imagine_cuda.NAMES):
+        assert torch.equal(whole[k], fewer[k]), name
+
+
+@pytest.mark.cuda
+def test_imagine_plan_is_the_kernels_on_card(cuda):
+    """The C source's plan (``dt_imagine_plan``) is ``imagine_plan`` at the
+    small, flagship and drone widths over 1, 50, 114 and 132 blocks; the
+    wrapper refuses a shape where not."""
+    for shape in ("small", "flagship", "drone"):
+        h0, z0, eps, gum, w, rows, classes, _, _ = imagine_operands(shape, 2, 1)
+        widths = imagine_cuda.widths_of(imagine_cuda.dims_of(w, h0, z0, eps), rows, classes)
+        for blocks in (1, 50, 114, 132):
+            assert imagine_cuda.c_plan_table(widths, blocks) == \
+                imagine_cuda.imagine_plan(widths, blocks).table, (shape, blocks)
 
 
 @pytest.mark.cuda
