@@ -69,7 +69,20 @@ Phases, each printing its lines; any failure exits non-zero:
             whole-scan GRU's h' there equal to the forward's bit for bit), a
             profile of one iteration; then one wm_update on the card against
             the same update on the CPU (a sanity check guarding no kernel).
-9. the "kernels" JSON line, then the result line.
+9. lifecycle: the training lifecycle through its entry point,
+            dreamer_tpu_torch.cli.train.main in process on
+            configs/car_racer.yaml with the fake env, a short schedule
+            (2 kickstart rounds, 4 iterations, evals and checkpoints every 2)
+            and a 2,000-step ring, then again with --resume to 6 iterations:
+            the resume restoring iteration 4 and the ring, a metrics row with
+            finite losses for each of the 6 iterations, best.json and
+            agent_best, eval episodes of 50 and 100 steps compacting the eval
+            rows from 2 to 1, the GRU cell and encoder launched in rollout and
+            in eval and held to their plain versions at those rows (1 and 2),
+            every kernel launched; seconds, the median perf/env_steps_per_s,
+            perf/learner_s and perf/rollout_s, the eval rewards.
+10. the "kernels" JSON line (each kernel's launches on the main path,
+            train_iteration, and by path), then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
 """
@@ -78,6 +91,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -135,6 +149,19 @@ TRAIN_ITERATIONS = 5
 # row's states; each loss is a mean over 50 x 30 terms); a sanity check of the
 # update on the card, guarding no kernel.
 WM_CARD_VS_CPU_RTOL = 0.1
+# The lifecycle, python -m dreamer_tpu_torch.cli.train in process at the
+# flagship widths: the fake env (the card's machine has no Box2D), a short
+# schedule with two checkpoints and evals in each of two runs (the second
+# resumed), and a replay ring of 2,000 of the published 200,000 steps: every
+# checkpoint writes the whole ring, and capacity is not a width.
+LIFECYCLE = ("env.env_id=fake", "train.random_iterations=2", "train.eval_every=2",
+             "train.checkpoint_every=2", "train.eval_episodes=2",
+             "train.final_eval_episodes=2", "train.buffer_size=2000")
+LIFECYCLE_ITERATIONS = (4, 6)   # the first run's schedule, then the resumed run's
+# The lifecycle's two eval episodes end apart (the fake env's 100 steps
+# otherwise end both together), so eval compacts its rows from 2 to 1 on the
+# card: the row gather and a 1-row eval bucket.
+LIFECYCLE_EVAL_STEPS = (50, 100)
 
 
 def fail(msg: str) -> None:
@@ -1182,6 +1209,163 @@ def check_wm_update_vs_cpu(cfg, card: str) -> None:
              f"{WM_CARD_VS_CPU_RTOL}) or an update was skipped")
 
 
+def run_lifecycle(cfg, card: str) -> dict:
+    """The training lifecycle through its entry point: ``cli.train.main`` on
+    configs/car_racer.yaml with ``LIFECYCLE``, then again with ``--resume``
+    and a longer schedule, its eval episodes of ``LIFECYCLE_EVAL_STEPS``.
+    Gates the resume (iteration and ring restored, the rest of the schedule
+    run), the metrics of every iteration, the best export, the kernels'
+    launches in rollout and eval, eval's compaction from 2 rows to 1, and
+    holds the GRU cell and the encoder to their plain versions at the
+    serving rows the lifecycle launches them at.  Returns each kernel's
+    launches over both runs."""
+    import csv
+    import functools
+    import tempfile
+
+    import torch
+
+    from dreamer_tpu_torch.cli import train as cli
+    from dreamer_tpu_torch.envs import EnvFarm, FakeEnv
+    from dreamer_tpu_torch.nets import gru, wm_nets
+    from dreamer_tpu_torch.ops import conv_cuda, gru_cuda
+    from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
+    from dreamer_tpu_torch.ops.imagine_cuda import imagine_rollout
+    from dreamer_tpu_torch.orchestrator import dreamer as orch
+    from dreamer_tpu_torch.train.step import Policy
+    from dreamer_tpu_torch.utils.checkpoint import load
+
+    kernels = {"gru_cell": gru_cuda.gru_cell, "gru_scan": gru_scan,
+               "encoder": conv_cuda.encoder_forward, "imagine_rollout": imagine_rollout}
+    by_phase = {phase: dict.fromkeys(kernels, 0) for phase in ("rollout", "eval")}
+    serving_rows = max(cfg.env.num_envs, 2)
+    held = {"gru_cell": set(), "encoder": set()}
+    restored = {}
+    eval_rows = set()
+    real = {"collect": orch.Dreamer._collect_chunk, "eval": orch.Dreamer._evaluate_batched,
+            "restore": orch.Dreamer.restore_latest, "cell": gru.gru_cell,
+            "encode": wm_nets.encode, "observe": Policy.policy_observe}
+
+    def counted(phase, fn):
+        def run(self, *args):
+            before = {n: k.launches for n, k in kernels.items()}
+            out = fn(self, *args)
+            for n, k in kernels.items():
+                by_phase[phase][n] += k.launches - before[n]
+            return out
+        return run
+
+    def evaluate(self, episodes, max_steps):
+        if self._eval_farm is None:
+            self._eval_farm = EnvFarm(
+                [functools.partial(FakeEnv, obs_size=tuple(self.cfg.wm.obs_size), episode_len=n)
+                 for n in LIFECYCLE_EVAL_STEPS], seed=self._eval_seed)
+        return real["eval"](self, episodes, max_steps)
+
+    # Only eval (and the unused run) observes through policy_observe.
+    def observe(self, z, h, *args):
+        eval_rows.add(h.shape[0])
+        return real["observe"](self, z, h, *args)
+
+    def restore(self):
+        found = real["restore"](self)
+        restored.update(found=found, iteration=self.iteration, size=self.buf.size)
+        return found
+
+    def cell(x, h, *w):
+        out = real["cell"](x, h, *w)
+        if x.shape[0] <= serving_rows and x.shape[0] not in held["gru_cell"]:
+            held["gru_cell"].add(x.shape[0])
+            max_err(out, gru_cuda.gru_cell_plain(x, h, *w), gru_cuda.tolerance,
+                    f"lifecycle: GRU cell at the path's {x.shape[0]} rows")
+        return out
+
+    # The path's own calls are wrapped where it calls them (the wrappers'
+    # launch counters stay theirs).
+    def encode(obs, table, operands, params):
+        out = real["encode"](obs, table, operands, params)
+        if obs.shape[0] <= serving_rows and obs.shape[0] not in held["encoder"]:
+            held["encoder"].add(obs.shape[0])
+            max_err(out, conv_cuda.encoder_forward_plain(obs, *operands, table),
+                    conv_cuda.tolerance, f"lifecycle: encoder at the path's {obs.shape[0]} "
+                    "frames")
+        return out
+
+    first, total = LIFECYCLE_ITERATIONS
+    times, rewards = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        models, logs = Path(tmp) / "models", Path(tmp) / "logs"
+        argv = ["--config", str(CONFIG), "--overrides", *LIFECYCLE,
+                f"runtime.checkpoint_dir={models}", f"runtime.log_dir={logs}"]
+        orch.Dreamer._collect_chunk = counted("rollout", real["collect"])
+        orch.Dreamer._evaluate_batched = counted("eval", evaluate)
+        orch.Dreamer.restore_latest = restore
+        Policy.policy_observe = observe
+        gru.gru_cell, wm_nets.encode = cell, encode
+        for k in kernels.values():
+            k.launches = 0
+        try:
+            start = time.perf_counter()
+            rewards.append(cli.main(argv + [f"train.training_iterations={first}"]))
+            times.append(time.perf_counter() - start)
+            saved = load(str(models / f"ckpt_{first}"))["buffer"]["size"]
+            start = time.perf_counter()
+            rewards.append(cli.main(["--resume"] + argv
+                                    + [f"train.training_iterations={total}"]))
+            times.append(time.perf_counter() - start)
+        finally:
+            orch.Dreamer._collect_chunk, orch.Dreamer._evaluate_batched = (real["collect"],
+                                                                          real["eval"])
+            orch.Dreamer.restore_latest = real["restore"]
+            Policy.policy_observe = real["observe"]
+            gru.gru_cell, wm_nets.encode = real["cell"], real["encode"]
+        launches = {n: k.launches for n, k in kernels.items()}
+        rows = []
+        for name in ("metrics.leg1.csv", "metrics.csv"):
+            with open(logs / name) as f:
+                rows += list(csv.DictReader(f))
+        best = [(models / n).exists() for n in ("best.json", "agent_best")]
+
+    if restored != {"found": True, "iteration": first, "size": saved}:
+        fail(f"lifecycle: the resumed run restored {restored}, expected iteration {first} "
+             f"and a ring of {saved}")
+    steps = [r for r in rows if r.get("wm/loss")]
+    if [int(r["iteration"]) for r in steps] != list(range(1, total + 1)):
+        fail(f"lifecycle: metrics rows for iterations {[r['iteration'] for r in steps]}")
+    for r in steps:
+        for key in ("wm/loss", "ac/loss_actor", "ac/loss_critic"):
+            if not math.isfinite(float(r[key])):
+                fail(f"lifecycle: iteration {r['iteration']} {key} = {r[key]}")
+    if not all(best):
+        fail("lifecycle: best.json or agent_best was not written")
+    for phase, counts in by_phase.items():
+        if not (counts["gru_cell"] and counts["encoder"]):
+            fail(f"lifecycle: {phase} launched {counts}")
+    if eval_rows != {1, 2}:
+        fail(f"lifecycle: eval observed at rows {sorted(eval_rows)}, expected 2 compacted to 1")
+    if held != {"gru_cell": {1, 2}, "encoder": {1, 2}}:
+        fail(f"lifecycle: the serving rows checked were {held}, expected 1 (rollout and "
+             "compacted eval) and 2 (eval)")
+    evals = [f"{float(r['eval/mean_reward']):.2f} (iter {r['iteration']})" for r in rows
+             if r.get("eval/mean_reward")]
+    print(f"lifecycle: cli.train at {CONFIG.name}'s widths with {' '.join(LIFECYCLE)} (the "
+          f"ring cut to 2,000 of 200,000 steps: capacity is not a width); run 1 "
+          f"{first} iterations in {times[0]:.2f} s, run 2 resumed at iteration "
+          f"{restored['iteration']} with a ring of {restored['size']} steps, to {total}, in "
+          f"{times[1]:.2f} s on {card}", flush=True)
+    print(f"lifecycle: median perf/env_steps_per_s "
+          f"{statistics.median(float(r['perf/env_steps_per_s']) for r in steps):.2f}, "
+          f"perf/learner_s {statistics.median(float(r['perf/learner_s']) for r in steps):.4f}"
+          f", perf/rollout_s {statistics.median(float(r['perf/rollout_s']) for r in steps):.4f}"
+          f"; wm/loss " + " ".join(f"{float(r['wm/loss']):.1f}" for r in steps)
+          + f"; eval rewards {', '.join(evals)}; final {rewards[0]:.2f}, {rewards[1]:.2f}",
+          flush=True)
+    print(f"lifecycle: launches over both runs {launches}; in rollout {by_phase['rollout']}, "
+          f"in eval {by_phase['eval']} (episodes of {LIFECYCLE_EVAL_STEPS} steps, rows "
+          f"compacted 2 -> 1); best.json and agent_best written", flush=True)
+    return launches
+
+
 def kernel_faults():
     """Faulty kernels whose card-vs-CPU readings ``check_ac_update_vs_cpu``
     prints beside the right kernels' reading: (name, module, the name the
@@ -1341,6 +1525,13 @@ def main() -> int:
                                  "ac_step": on_ac[k["name"]],
                                  "train_iteration": on_iteration[k["name"]]}
     check_wm_update_vs_cpu(cfg, card)
+
+    # The training lifecycle through the CLI: every kernel again.
+    on_lifecycle = run_lifecycle(cfg, card)
+    for k in kernels:
+        if on_lifecycle[k["name"]] == 0:
+            fail(f"the lifecycle path never launched {k['name']}")
+        k["launches_by_path"]["lifecycle"] = on_lifecycle[k["name"]]
 
     # Times at the main path's shapes: the GRU cell at 50 rows, the whole-scan
     # GRU at T 1 x 1500, the encoder at 1500 frames, the imagination at B 50,

@@ -13,7 +13,12 @@ Ported so far: the serving path, the policy programs of
 fused conv-encoder kernels; the actor-critic half of the learner
 (``train.step.Trainer.ac_step``: replay ring, warm start, imagination through
 the whole-rollout kernel, losses and AdamW updates); ``bridge`` moves
-parameters and training states from the JAX trees.
+parameters and training states from the JAX trees; the world-model half and
+with it the whole learner iteration (``Trainer.train_iteration``, through all
+four kernels); and the training lifecycle: ``orchestrator.Dreamer``
+(kickstart, rollout, eval, checkpoints and resume) with ``envs`` (the fake
+env, the env farm), ``utils`` (metrics, checkpoints) and the CLI,
+``python -m dreamer_tpu_torch.cli.train``.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,10 @@
 """Typed configuration for dreamer_tpu_torch.
 
 A copy of the dataclass tree of ``dreamer_tpu/config.py`` (same sections,
-fields and defaults), loaded from the same ``configs/*.yaml`` files.  YAML is
-read by ``read_yaml`` below, a small reader of the subset those files use, so
-the port needs no PyYAML.  The reference's flat key schema
-(``config.py:262``) and dotted CLI overrides (``config.py:348``) come with the
-CLI slice.
+fields and defaults), loaded from the same ``configs/*.yaml`` files, in
+either the nested schema or the reference's flat one, with dotted CLI
+overrides.  YAML is read by ``read_yaml`` below, a small reader of the subset
+those files use, so the port needs no PyYAML.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -243,10 +242,84 @@ class DreamerConfig:
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
     @classmethod
-    def from_yaml(cls, path: str) -> "DreamerConfig":
+    def from_yaml(cls, path: str, overrides: Sequence[str] = ()) -> "DreamerConfig":
+        """Load ``path`` (nested or flat reference schema), then apply each
+        ``section.key=value`` override in order (``config.py:250-260``)."""
         with open(path, "r") as f:
             raw = read_yaml(f.read())
-        return cls.from_nested_dict(raw)
+        if _is_flat_reference_config(raw):
+            cfg = cls.from_flat_dict(raw)
+        else:
+            cfg = cls.from_nested_dict(raw)
+        for ov in overrides:
+            cfg = cfg.with_override(ov)
+        return cfg
+
+    @classmethod
+    def from_flat_dict(cls, d: Dict[str, Any]) -> "DreamerConfig":
+        """Load the reference's flat key schema (``config.py:262-325``): its
+        key names mapped onto the sections, anything unnamed left at the
+        default, and ``runtime_<field>`` keys set on the runtime section."""
+        g = d.get
+        latent = tuple(g("latent_state_dims", (32, 32)))
+        wm = WorldModelConfig(
+            hidden_dim=g("hidden_state_dims", 600),
+            latent_rows=latent[0],
+            latent_classes=latent[1],
+            obs_size=tuple(g("observation_dims", (64, 64))),
+            encoder_filters_1=g("encoder_filter_num_1", 32),
+            encoder_filters_2=g("encoder_filter_num_2", 64),
+            encoder_hidden=g("encoder_hidden_layer_nodes", 200),
+            decoder_filters_1=g("decoder_filter_num_1", 32),
+            decoder_filters_2=g("decoder_filter_num_2", 64),
+            decoder_hidden=g("decoder_hidden_layer_nodes", 200),
+            dyn_hidden_1=g("dyn_pred_hidden_num_nodes_1", 200),
+            dyn_hidden_2=g("dyn_pred_hidden_num_nodes_2", 200),
+            rew_hidden_1=g("rew_pred_hidden_num_nodes_1", 200),
+            rew_hidden_2=g("rew_pred_hidden_num_nodes_2", 200),
+            cont_hidden_1=g("cont_pred_hidden_num_nodes_1", 200),
+            cont_hidden_2=g("cont_pred_hidden_num_nodes_2", 200),
+            reward_buckets=g("critic_reward_buckets", 255),
+            lr=g("world_model_lr", 1e-4),
+            betas=tuple(g("world_model_betas", (0.9, 0.999))),
+            eps=g("world_model_eps", 1e-5),
+            beta_pred=g("beta_prediction", 1.0),
+            beta_dyn=g("beta_dynamics", 0.5),
+            beta_rep=g("beta_representation", 0.1),
+        )
+        agent = AgentConfig(
+            actor_hidden_1=g("hidden_layer_actor_1_size", 200),
+            actor_hidden_2=g("hidden_layer_actor_2_size", 200),
+            critic_hidden_1=g("hidden_layer_critic_1_size", 200),
+            critic_hidden_2=g("hidden_layer_critic_2_size", 200),
+            critic_buckets=g("critic_reward_buckets", 255),
+            actor_lr=g("actor_lr", 8e-5),
+            actor_betas=tuple(g("actor_betas", (0.9, 0.999))),
+            actor_eps=g("actor_eps", 1e-5),
+            critic_lr=g("critic_lr", 1e-4),
+            critic_betas=tuple(g("critic_betas", (0.9, 0.999))),
+            critic_eps=g("critic_eps", 1e-5),
+            nu=g("nu", 3e-4),
+            lambda_=g("lambda_", 0.95),
+            gamma=g("gamma", 0.99),
+        )
+        train = TrainConfig(
+            horizon=g("horizon", 30),
+            batch_size=g("batch_size", 50),
+            sequence_length=g("sequence_length", 50),
+            buffer_size=g("buffer_size", 200_000),
+            training_iterations=g("training_iterations", 10_000),
+            random_iterations=g("random_iterations", 500),
+            wm_epochs=g("WM_epochs", 2),
+            ac_epochs=g("AC_epochs", 2),
+            seed=g("seed", 42),
+        )
+        env = EnvConfig(env_id=g("env_id", "CarRacing-v3"), action_dim=g("action_dims", 3))
+        runtime = RuntimeConfig()
+        for k, v in d.items():
+            if k.startswith("runtime_"):
+                setattr(runtime, k[len("runtime_"):], v)
+        return cls(wm=wm, agent=agent, train=train, env=env, runtime=runtime)
 
     @classmethod
     def from_nested_dict(cls, d: Dict[str, Any]) -> "DreamerConfig":
@@ -261,8 +334,8 @@ class DreamerConfig:
 
         unknown = set(d) - {"wm", "agent", "train", "env", "runtime"}
         if unknown:
-            raise KeyError(f"Unknown config sections {sorted(unknown)} (the flat "
-                           "reference schema is not supported by the port yet)")
+            raise KeyError(f"Unknown config sections {sorted(unknown)} (a flat reference "
+                           "config loads through from_flat_dict)")
         return cls(
             wm=build(WorldModelConfig, d.get("wm")),
             agent=build(AgentConfig, d.get("agent")),
@@ -271,8 +344,48 @@ class DreamerConfig:
             runtime=build(RuntimeConfig, d.get("runtime")),
         )
 
+    def with_override(self, dotted: str) -> "DreamerConfig":
+        """Apply a ``section.key=value`` override (``config.py:348-389``).
+
+        The value is read as a YAML scalar or flow list by ``read_yaml``'s
+        rules, then coerced by the target field's current type: a numeric
+        field re-parses a string with float() (YAML 1.1 reads a bare ``3e-3``
+        as a string), and an int field refuses a non-integral value."""
+        path, _, value = dotted.partition("=")
+        section, _, key = path.partition(".")
+        parsed = _value(value)
+        if isinstance(parsed, list):
+            parsed = tuple(parsed)
+        sub = getattr(self, section)
+        if not hasattr(sub, key):
+            raise KeyError(f"Unknown config key {section}.{key}")
+        current = getattr(sub, key)
+        if isinstance(parsed, str) and isinstance(current, bool):
+            raise ValueError(f"{path}: could not parse {value!r} as bool")
+        if isinstance(parsed, str) and isinstance(current, (int, float)):
+            try:
+                as_float = float(parsed)
+            except ValueError:
+                raise ValueError(f"{path}: could not parse {value!r} as "
+                                 f"{type(current).__name__}") from None
+            if isinstance(current, int) and as_float != int(as_float):
+                raise ValueError(f"{path}: {value!r} is not an integer (field is int-typed)")
+            parsed = type(current)(as_float)
+        if isinstance(parsed, float) and isinstance(current, int) \
+                and not isinstance(current, bool):
+            if parsed != int(parsed):
+                raise ValueError(f"{path}: {value!r} is not an integer (field is int-typed)")
+            parsed = int(parsed)
+        new_sub = dataclasses.replace(sub, **{key: parsed})
+        return dataclasses.replace(self, **{section: new_sub})
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def _is_flat_reference_config(d: Dict[str, Any]) -> bool:
+    nested_keys = {"wm", "agent", "train", "env", "runtime"}
+    return not (set(d.keys()) <= nested_keys and any(k in d for k in nested_keys))
 
 
 # --------------------------------------------------------------------------- #

@@ -53,9 +53,12 @@ class RSSM:
 
     def __init__(self, cfg: WorldModelConfig, action_dim: int = 3,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 nets: Optional[WMNets] = None):
+        """Wraps ``nets`` when given (any device), else new nets drawn from
+        ``generator``."""
         self.cfg = cfg
-        self.nets = WMNets(cfg, action_dim, dtype, generator)
+        self.nets = WMNets(cfg, action_dim, dtype, generator) if nets is None else nets
 
     def encode_obs(self, obs_u8: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.nets.encode_obs(obs_u8, train)

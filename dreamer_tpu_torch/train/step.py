@@ -21,6 +21,7 @@ import torch
 from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import sample_gumbel
 from dreamer_tpu_torch.nets.actor_critic import Actor, Critic
+from dreamer_tpu_torch.nets.wm_nets import WMNets
 from dreamer_tpu_torch.replay.buffer import ReplayBuffer, ReplayState
 from dreamer_tpu_torch.rssm.rssm import RSSM
 from dreamer_tpu_torch.train.agent import ACNoise, AgentTrainer
@@ -48,21 +49,32 @@ class PolicyNoise(NamedTuple):
 
 
 class Policy:
-    def __init__(self, cfg: DreamerConfig, device=None, seed: int = 0):
-        """Build the nets at ``cfg``'s widths with weights drawn from ``seed``
-        (on the CPU, so every device gets the same weights) and move them to
-        ``device``."""
+    def __init__(self, cfg: DreamerConfig, device=None, seed: int = 0,
+                 nets: Optional[WMNets] = None, actor: Optional[Actor] = None):
+        """Act with ``nets`` (``WMNets``) and ``actor`` themselves when both
+        are given, not copies, on their device and in their dtype: a
+        learner's in-place updates reach the policy at once, and the kernel
+        layouts follow by their version stamps.  Otherwise build the nets at
+        ``cfg``'s widths with weights drawn from ``seed`` (on the CPU, so
+        every device gets the same weights) and move them to ``device``."""
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.dtype = getattr(torch, cfg.runtime.compute_dtype)
-        gen = torch.Generator().manual_seed(seed)
-        self.rssm = RSSM(cfg.wm, cfg.env.action_dim, self.dtype, gen)
-        a = cfg.agent
-        self.actor = Actor(cfg.wm.hidden_dim + cfg.wm.latent_dim, cfg.env.action_dim,
-                           a.actor_hidden_1, a.actor_hidden_2, a.min_std, self.dtype, gen)
-        self.rssm.nets.to(self.device)
-        self.actor.to(self.device)
-        self.rssm.nets.prepare_kernels()
+        if (nets is None) != (actor is None):
+            raise ValueError("Policy takes both nets and actor, or neither")
+        if nets is None:
+            self.device = resolve_device(device)
+            self.dtype = getattr(torch, cfg.runtime.compute_dtype)
+            gen = torch.Generator().manual_seed(seed)
+            nets = WMNets(cfg.wm, cfg.env.action_dim, self.dtype, gen).to(self.device)
+            a = cfg.agent
+            actor = Actor(cfg.wm.hidden_dim + cfg.wm.latent_dim, cfg.env.action_dim,
+                          a.actor_hidden_1, a.actor_hidden_2, a.min_std, self.dtype,
+                          gen).to(self.device)
+            nets.prepare_kernels()
+        else:
+            self.device = next(nets.parameters()).device
+            self.dtype = nets.dtype
+        self.rssm = RSSM(cfg.wm, cfg.env.action_dim, self.dtype, nets=nets)
+        self.actor = actor
 
     def sample_noise(self, n: int, generator: torch.Generator) -> PolicyNoise:
         """Draw one step's noise for ``n`` envs on the policy's device."""
