@@ -81,7 +81,21 @@ Phases, each printing its lines; any failure exits non-zero:
             in eval and held to their plain versions at those rows (1 and 2),
             every kernel launched; seconds, the median perf/env_steps_per_s,
             perf/learner_s and perf/rollout_s, the eval rewards.
-10. the "kernels" JSON line (each kernel's launches on the main path,
+10. async lifecycle: cli.train.main again on configs/car_racer.yaml, with
+            env.async_envs over 4 envs and LunarLander-v3's pixel-from-render
+            stack (ActionRepeat -> PixelObservation -> ResizeObservation)
+            over --env-maker chip_smoke:lunar_lander_stand_in, a stand-in
+            base env drawing the fake env's frames at LunarLander's 400 x 600
+            render size (the card's machine has no Box2D); 1 kickstart round
+            and 2 iterations, then --resume to 3: the workers spawned, with
+            PIDs of their own, while CUDA is live here; each round's env
+            steps 4 x sequence_length; the GRU cell and encoder launched in
+            rollout at 4 rows and held there to their plain versions; eval on
+            the in-process farm; the resume restoring the iteration, the ring
+            and the farm's seed counter; the medians of perf/rollout_s and
+            perf/env_steps_per_s beside the one-env leg's, and the farm's
+            step beside one env's step of the same stack in this process.
+11. the "kernels" JSON line (each kernel's launches on the main path,
             train_iteration, and by path), then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
@@ -162,6 +176,19 @@ LIFECYCLE_ITERATIONS = (4, 6)   # the first run's schedule, then the resumed run
 # otherwise end both together), so eval compacts its rows from 2 to 1 on the
 # card: the row gather and a 1-row eval bucket.
 LIFECYCLE_EVAL_STEPS = (50, 100)
+# The lifecycle again with a real env's wrapper stack in AsyncEnvFarm's
+# spawned workers: 4 envs (the rollout then serves 4 rows, and the farm has
+# work to spread), LunarLander-v3's pixel-from-render stack over a stand-in
+# base env, a kickstart round and 2 iterations, then a resumed third.
+ASYNC_ENV_ID = "LunarLander-v3"
+ASYNC_ENVS = 4
+ASYNC_LEG = (f"env.env_id={ASYNC_ENV_ID}", "env.async_envs=true", f"env.num_envs={ASYNC_ENVS}",
+             "train.random_iterations=1", "train.eval_every=2", "train.checkpoint_every=2",
+             "train.eval_episodes=2", "train.final_eval_episodes=2", "train.buffer_size=2000")
+ASYNC_ITERATIONS = (2, 3)
+ASYNC_MAKER = "chip_smoke:lunar_lander_stand_in"
+# LunarLander-v3 renders 400 x 600 RGB frames.
+STAND_IN_FRAME = (400, 600)
 
 
 def fail(msg: str) -> None:
@@ -1363,6 +1390,194 @@ def run_lifecycle(cfg, card: str) -> dict:
     print(f"lifecycle: launches over both runs {launches}; in rollout {by_phase['rollout']}, "
           f"in eval {by_phase['eval']} (episodes of {LIFECYCLE_EVAL_STEPS} steps, rows "
           f"compacted 2 -> 1); best.json and agent_best written", flush=True)
+    medians = {k: statistics.median(float(r[k]) for r in steps)
+               for k in ("perf/rollout_s", "perf/env_steps_per_s")}
+    return launches, medians
+
+
+def lunar_lander_stand_in(env_id: str, render_mode=None, max_episode_steps=None, **kwargs):
+    """The async leg's base-env maker, with ``gymnasium.make``'s signature: the
+    fake env at LunarLander's 400 x 600 render size with the config's
+    ``action_dim``.  It takes only what ``make_env`` passes for a
+    pixel-from-render id, so that the leg holds those keywords too."""
+    from dreamer_tpu_torch.config import DreamerConfig
+    from dreamer_tpu_torch.envs import FakeEnv
+
+    if not env_id.startswith("LunarLander") or render_mode != "rgb_array" \
+            or kwargs != {"continuous": True}:
+        raise ValueError(f"stand-in for LunarLander asked for {env_id!r}, "
+                         f"render_mode={render_mode!r}, {kwargs}")
+    return FakeEnv(obs_size=STAND_IN_FRAME,
+                   action_dim=DreamerConfig.from_yaml(str(CONFIG)).env.action_dim,
+                   episode_len=max_episode_steps or 100)
+
+
+def run_async_lifecycle(cfg, card: str, one_env: dict) -> dict:
+    """The lifecycle through ``cli.train.main`` with ``ASYNC_LEG``: the
+    rollout in ``AsyncEnvFarm``'s spawned workers over a real env's wrapper
+    stack, eval in process, then ``--resume``.  ``one_env`` holds the
+    one-env leg's medians, printed beside this leg's.  Returns each kernel's
+    launches over both runs."""
+    import csv
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from dreamer_tpu_torch.cli import train as cli
+    from dreamer_tpu_torch.envs import make_env, vector
+    from dreamer_tpu_torch.nets import gru, wm_nets
+    from dreamer_tpu_torch.ops import conv_cuda, gru_cuda
+    from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
+    from dreamer_tpu_torch.ops.imagine_cuda import imagine_rollout
+    from dreamer_tpu_torch.orchestrator import dreamer as orch
+    from dreamer_tpu_torch.utils.checkpoint import load
+
+    kernels = {"gru_cell": gru_cuda.gru_cell, "gru_scan": gru_scan,
+               "encoder": conv_cuda.encoder_forward, "imagine_rollout": imagine_rollout}
+    rollout = dict.fromkeys(kernels, 0)
+    n_envs = ASYNC_ENVS
+    held = {"gru_cell": set(), "encoder": set()}
+    rounds, farms, evals, restored = [], [], [], {}
+    steps, step_s = [0], []
+    real = {"collect": orch.Dreamer._collect_chunk, "eval": orch.Dreamer._evaluate_batched,
+            "restore": orch.Dreamer.restore_latest, "step": vector.AsyncEnvFarm.step,
+            "cell": gru.gru_cell, "encode": wm_nets.encode}
+
+    def collect(self, *args):
+        before = {n: k.launches for n, k in kernels.items()}
+        steps[0] = 0
+        out = real["collect"](self, *args)
+        rounds.append(steps[0])
+        for n, k in kernels.items():
+            rollout[n] += k.launches - before[n]
+        f = self.farm
+        farms.append((type(f).__name__, tuple(p.pid for p in f.workers),
+                      {type(p).__name__ for p in f.workers},
+                      all(p.is_alive() for p in f.workers)))
+        return out
+
+    def step(self, actions):
+        steps[0] += len(actions)
+        start = time.perf_counter()
+        out = real["step"](self, actions)
+        step_s.append(time.perf_counter() - start)
+        return out
+
+    def evaluate(self, episodes, max_steps):
+        out = real["eval"](self, episodes, max_steps)
+        evals.append(type(self._eval_farm).__name__)
+        return out
+
+    def restore(self):
+        found = real["restore"](self)
+        restored.update(found=found, iteration=self.iteration, size=self.buf.size,
+                        farm_seed=self.farm.seed)
+        return found
+
+    def cell(x, h, *w):
+        out = real["cell"](x, h, *w)
+        if x.shape[0] == n_envs and n_envs not in held["gru_cell"]:
+            held["gru_cell"].add(n_envs)
+            max_err(out, gru_cuda.gru_cell_plain(x, h, *w), gru_cuda.tolerance,
+                    f"async lifecycle: GRU cell at the rollout's {n_envs} rows")
+        return out
+
+    def encode(obs, table, operands, params):
+        out = real["encode"](obs, table, operands, params)
+        if obs.shape[0] == n_envs and n_envs not in held["encoder"]:
+            held["encoder"].add(n_envs)
+            max_err(out, conv_cuda.encoder_forward_plain(obs, *operands, table),
+                    conv_cuda.tolerance, f"async lifecycle: encoder at the rollout's {n_envs} "
+                    "frames")
+        return out
+
+    first, total = ASYNC_ITERATIONS
+    times = []
+    with tempfile.TemporaryDirectory() as tmp:
+        models, logs = Path(tmp) / "models", Path(tmp) / "logs"
+        argv = ["--config", str(CONFIG), "--env-maker", ASYNC_MAKER, "--overrides", *ASYNC_LEG,
+                f"runtime.checkpoint_dir={models}", f"runtime.log_dir={logs}"]
+        orch.Dreamer._collect_chunk, orch.Dreamer._evaluate_batched = collect, evaluate
+        orch.Dreamer.restore_latest, vector.AsyncEnvFarm.step = restore, step
+        gru.gru_cell, wm_nets.encode = cell, encode
+        for k in kernels.values():
+            k.launches = 0
+        try:
+            start = time.perf_counter()
+            cli.main(argv + [f"train.training_iterations={first}"])
+            times.append(time.perf_counter() - start)
+            saved = load(str(models / f"ckpt_{first}"))
+            start = time.perf_counter()
+            cli.main(["--resume"] + argv + [f"train.training_iterations={total}"])
+            times.append(time.perf_counter() - start)
+        finally:
+            orch.Dreamer._collect_chunk, orch.Dreamer._evaluate_batched = (real["collect"],
+                                                                          real["eval"])
+            orch.Dreamer.restore_latest, vector.AsyncEnvFarm.step = (real["restore"],
+                                                                     real["step"])
+            gru.gru_cell, wm_nets.encode = real["cell"], real["encode"]
+        launches = {n: k.launches for n, k in kernels.items()}
+        rows = []
+        for name in ("metrics.leg1.csv", "metrics.csv"):
+            with open(logs / name) as f:
+                rows += [r for r in csv.DictReader(f) if r.get("wm/loss")]
+
+    # Where a farm step goes: one env's step of the same stack in this process.
+    env = make_env(ASYNC_ENV_ID, obs_size=tuple(cfg.wm.obs_size),
+                   action_repeat=cfg.env.action_repeat, base_make=ASYNC_MAKER)
+    env.reset(seed=0)
+    one_step_s = []
+    for _ in range(20):
+        start = time.perf_counter()
+        env.step(np.zeros(cfg.env.action_dim, np.float32))
+        one_step_s.append(time.perf_counter() - start)
+    env.close()
+
+    want_steps = n_envs * cfg.train.sequence_length
+    if not rounds or set(rounds) != {want_steps}:
+        fail(f"async lifecycle: env steps per round {rounds}, expected {want_steps}")
+    for name, pids, kinds, alive in farms:
+        if name != "AsyncEnvFarm" or kinds != {"SpawnProcess"}:
+            fail(f"async lifecycle: the rollout ran on {name}, its workers {kinds}")
+        if len(set(pids)) != n_envs or os.getpid() in pids or not alive:
+            fail(f"async lifecycle: workers {pids} (alive {alive}), this process {os.getpid()}")
+    if len({f[1] for f in farms}) != 2:
+        fail(f"async lifecycle: expected one farm a run, saw workers {[f[1] for f in farms]}")
+    if not evals or set(evals) != {"EnvFarm"}:
+        fail(f"async lifecycle: eval ran on {evals}, expected the in-process EnvFarm")
+    expect = {"found": True, "iteration": first, "size": int(saved["buffer"]["size"]),
+              "farm_seed": int(saved["env_seed"])}
+    if restored != expect:
+        fail(f"async lifecycle: the resumed run restored {restored}, expected {expect}")
+    if [int(r["iteration"]) for r in rows] != list(range(1, total + 1)):
+        fail(f"async lifecycle: metrics rows for iterations {[r['iteration'] for r in rows]}")
+    for r in rows:
+        for key in ("wm/loss", "ac/loss_actor", "ac/loss_critic"):
+            if not math.isfinite(float(r[key])):
+                fail(f"async lifecycle: iteration {r['iteration']} {key} = {r[key]}")
+    if not (rollout["gru_cell"] and rollout["encoder"]):
+        fail(f"async lifecycle: rollout launched {rollout}")
+    if held != {"gru_cell": {n_envs}, "encoder": {n_envs}}:
+        fail(f"async lifecycle: the rollout rows checked were {held}, expected {n_envs}")
+    medians = {k: statistics.median(float(r[k]) for r in rows)
+               for k in ("perf/rollout_s", "perf/env_steps_per_s", "perf/learner_s")}
+    print(f"async lifecycle: cli.train at {CONFIG.name}'s widths with {' '.join(ASYNC_LEG)} "
+          f"--env-maker {ASYNC_MAKER} ({STAND_IN_FRAME[0]} x {STAND_IN_FRAME[1]} frames); "
+          f"{n_envs} spawned workers a run (pids {sorted({f[1] for f in farms})}, "
+          f"this process {os.getpid()}); {len(rounds)} rounds of {want_steps} env steps; "
+          f"eval on {evals[0]}; run 1 {first} iterations in {times[0]:.2f} s, run 2 resumed at "
+          f"iteration {restored['iteration']} (ring {restored['size']}, farm seed "
+          f"{restored['farm_seed']}) to {total} in {times[1]:.2f} s on {card}", flush=True)
+    print(f"async lifecycle: median perf/rollout_s {medians['perf/rollout_s']:.4f} and "
+          f"perf/env_steps_per_s {medians['perf/env_steps_per_s']:.2f} ({n_envs} envs in "
+          f"spawned workers) beside the one-env leg's {one_env['perf/rollout_s']:.4f} and "
+          f"{one_env['perf/env_steps_per_s']:.2f}; perf/learner_s {medians['perf/learner_s']:.4f}; "
+          f"launches over both runs {launches}, in "
+          f"rollout {rollout}; GRU cell and encoder held at {n_envs} rows", flush=True)
+    print(f"async lifecycle: median AsyncEnvFarm.step {statistics.median(step_s) * 1e3:.2f} ms "
+          f"({n_envs} envs, {len(step_s)} steps) beside one env's step of the same stack in "
+          f"this process {statistics.median(one_step_s) * 1e3:.2f} ms on {card}", flush=True)
     return launches
 
 
@@ -1527,11 +1742,18 @@ def main() -> int:
     check_wm_update_vs_cpu(cfg, card)
 
     # The training lifecycle through the CLI: every kernel again.
-    on_lifecycle = run_lifecycle(cfg, card)
+    on_lifecycle, one_env = run_lifecycle(cfg, card)
     for k in kernels:
         if on_lifecycle[k["name"]] == 0:
             fail(f"the lifecycle path never launched {k['name']}")
         k["launches_by_path"]["lifecycle"] = on_lifecycle[k["name"]]
+
+    # The lifecycle with a real env's wrapper stack in spawned env workers.
+    on_async = run_async_lifecycle(cfg, card, one_env)
+    for k in kernels:
+        if on_async[k["name"]] == 0:
+            fail(f"the async lifecycle path never launched {k['name']}")
+        k["launches_by_path"]["lifecycle_async"] = on_async[k["name"]]
 
     # Times at the main path's shapes: the GRU cell at 50 rows, the whole-scan
     # GRU at T 1 x 1500, the encoder at 1500 frames, the imagination at B 50,

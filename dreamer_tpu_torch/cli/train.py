@@ -1,11 +1,15 @@
 """Train a DreamerV3 agent with the port (``dreamer_tpu/cli/train.py``):
 
     python -m dreamer_tpu_torch.cli.train --config configs/car_racer.yaml \
-        [--overrides train.training_iterations=100 env.env_id=fake ...] \
-        [--resume] [--device cpu]
+        --env-maker gymnasium:make \
+        [--overrides train.training_iterations=100 ...] [--resume] [--device cpu]
 
 Reads the nested YAML schema and the reference's flat one.  Runs on the card
-unless ``--device`` names another device, and fails without one.  Honours
+unless ``--device`` names another device, and fails without one.  Every
+``env.env_id`` but ``fake`` needs ``--env-maker MODULE:FUNCTION``, a
+function with ``gymnasium.make``'s signature that builds the base env under
+the wrapper stack (``gymnasium:make`` on a machine with gymnasium and
+Box2D); it has no default, so the port names no gymnasium module.  Honours
 SM_MODEL_DIR (checkpoints) and SM_OUTPUT_DATA_DIR (logs).  SIGTERM
 checkpoints after the current iteration and exits 75 (EX_TEMPFAIL), so a
 supervisor resumes the run instead of reading it as finished.
@@ -20,6 +24,7 @@ import signal
 import torch
 
 from dreamer_tpu_torch.config import DreamerConfig
+from dreamer_tpu_torch.envs import missing_maker_message
 from dreamer_tpu_torch.orchestrator import Dreamer
 from dreamer_tpu_torch.train.step import resolve_device
 
@@ -34,9 +39,20 @@ def main(argv=None) -> float:
                         help="Resume from the latest checkpoint if present")
     parser.add_argument("--device", type=str, default=None,
                         help="A torch device (e.g. 'cpu'); default the CUDA card")
+    parser.add_argument("--env-maker", type=str, default=None, metavar="MODULE:FUNCTION",
+                        help="Builds the base env under the wrapper stack, with "
+                             "gymnasium.make's signature (e.g. gymnasium:make); needed by "
+                             "every env.env_id but 'fake'")
     args = parser.parse_args(argv)
 
     cfg = DreamerConfig.from_yaml(args.config, overrides=args.overrides)
+    if cfg.env.env_id != "fake" and args.env_maker is None:
+        command = " ".join(["python -m dreamer_tpu_torch.cli.train", "--config", args.config,
+                            "--env-maker gymnasium:make"]
+                           + (["--overrides", *args.overrides] if args.overrides else [])
+                           + (["--resume"] if args.resume else [])
+                           + (["--device", args.device] if args.device else []))
+        parser.error(f"{missing_maker_message(cfg.env.env_id)}, e.g.\n  {command}")
     model_dir = os.environ.get("SM_MODEL_DIR")
     output_dir = os.environ.get("SM_OUTPUT_DATA_DIR")
     if model_dir:
@@ -47,7 +63,7 @@ def main(argv=None) -> float:
     device = resolve_device(args.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}",
           flush=True)
-    dreamer = Dreamer(cfg, resuming=args.resume, device=device)
+    dreamer = Dreamer(cfg, env_maker=args.env_maker, resuming=args.resume, device=device)
     previous = signal.signal(signal.SIGTERM, lambda *_: dreamer.request_stop())
     try:
         final_reward = dreamer.train(resume=args.resume)

@@ -1,28 +1,36 @@
-"""Environments of the port: the fake pixel env and the synchronous farm.
+"""Environments of the port, without gymnasium: the fake pixel env, the
+wrapper stack of ``dreamer_tpu/envs/adaptors.py`` with its ``make_env``, the
+synchronous ``EnvFarm`` and the subprocess ``AsyncEnvFarm``.
 
-The GPU machine has no gymnasium, so ``make_env`` builds only the fake env;
-a real environment reaches the orchestrator as its ``env_factory`` argument
-(any object with gymnasium's ``reset``/``step`` tuples and an
-``action_space`` with ``seed`` and ``sample``)."""
+``make_env`` builds ``"fake"`` itself and every other id over a base env
+from a maker the caller names, ``base_make="module:function"`` with
+``gymnasium.make``'s signature (the CLI's ``--env-maker gymnasium:make``),
+imported by name in the process that builds the env.  Importing this
+package loads numpy and the standard library only, not torch, so that
+spawned env workers start quickly."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dreamer_tpu_torch.envs.adaptors import (ActionRepeat, CarRacerAdaptor, CropObservation,
+                                             DroneAdaptor, PixelObservation,
+                                             RenderSkippingActionRepeat, ResizeObservation,
+                                             make_env, missing_maker_message, resize_area)
+from dreamer_tpu_torch.envs.fake import Box, FakeEnv
+from dreamer_tpu_torch.envs.vector import AsyncEnvFarm, EnvFarm
 
-from dreamer_tpu_torch.envs.fake import FakeEnv
-from dreamer_tpu_torch.envs.vector import EnvFarm
-
-
-def make_env(env_id: str, obs_size: Tuple[int, int] = (64, 64), action_repeat: int = 4,
-             crop_rows: Optional[int] = 84, max_episode_steps: Optional[int] = None):
-    """``"fake"`` gives ``FakeEnv`` (``dreamer_tpu/envs/adaptors.py:218-222``);
-    the other arguments shape real envs, which the port does not build."""
-    if env_id == "fake":
-        return FakeEnv(obs_size=obs_size, episode_len=max_episode_steps or 100)
-    raise ValueError(
-        f"make_env: the port builds only env_id 'fake', not {env_id!r}: a real "
-        "environment reaches the port as the env_factory argument of "
-        "orchestrator.Dreamer, since the GPU machine has no gymnasium")
-
-
-__all__ = ["EnvFarm", "FakeEnv", "make_env"]
+__all__ = [
+    "ActionRepeat",
+    "AsyncEnvFarm",
+    "Box",
+    "CarRacerAdaptor",
+    "CropObservation",
+    "DroneAdaptor",
+    "EnvFarm",
+    "FakeEnv",
+    "PixelObservation",
+    "RenderSkippingActionRepeat",
+    "ResizeObservation",
+    "make_env",
+    "missing_maker_message",
+    "resize_area",
+]

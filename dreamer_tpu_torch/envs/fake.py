@@ -17,16 +17,18 @@ import numpy as np
 
 
 class Box:
-    """A bounded float32 box of actions.  ``seed(s)`` then ``sample()`` gives
-    what gymnasium's ``Box`` gives for the same seed: its generator is
+    """A bounded box (``low`` and ``high`` scalars or arrays broadcast to
+    ``shape``).  ``seed(s)`` then ``sample()`` gives what gymnasium's ``Box``
+    gives for the same seed: its generator is
     ``np.random.Generator(PCG64(SeedSequence(s)))`` and a sample one uniform
-    draw over every dimension, cast to float32."""
+    draw over every entry in C order, floored for an integer dtype, cast to
+    ``dtype``.  A batch of N boxes is the box of shape ``(N, *shape)``."""
 
-    def __init__(self, low: float, high: float, shape: Tuple[int, ...]):
+    def __init__(self, low, high, shape: Tuple[int, ...], dtype=np.float32):
         self.shape = tuple(shape)
-        self.dtype = np.dtype(np.float32)
-        self.low = np.full(self.shape, low, np.float32)
-        self.high = np.full(self.shape, high, np.float32)
+        self.dtype = np.dtype(dtype)
+        self.low = np.broadcast_to(np.asarray(low, self.dtype), self.shape).copy()
+        self.high = np.broadcast_to(np.asarray(high, self.dtype), self.shape).copy()
         self._rng = np.random.default_rng()
 
     def seed(self, seed: Optional[int] = None):
@@ -34,7 +36,10 @@ class Box:
         return seed
 
     def sample(self) -> np.ndarray:
-        return self._rng.uniform(self.low, self.high, size=self.shape).astype(self.dtype)
+        if self.dtype.kind == "f":
+            return self._rng.uniform(self.low, self.high, size=self.shape).astype(self.dtype)
+        high = self.high.astype(np.int64) + 1
+        return np.floor(self._rng.uniform(self.low, high, size=self.shape)).astype(self.dtype)
 
 
 class FakeEnv:
@@ -43,6 +48,7 @@ class FakeEnv:
         self.obs_size = obs_size
         self.action_dim = action_dim
         self.episode_len = episode_len
+        self.observation_space = Box(0, 255, (obs_size[0], obs_size[1], 3), np.uint8)
         self.action_space = Box(-1.0, 1.0, (action_dim,))
         self._pos = np.zeros(2, np.float32)
         self._t = 0
@@ -63,6 +69,10 @@ class FakeEnv:
         terminated = False
         truncated = self._t >= self.episode_len
         return self._render_obs(), reward, terminated, truncated, {}
+
+    @property
+    def unwrapped(self) -> "FakeEnv":
+        return self
 
     def render(self) -> np.ndarray:
         """The current frame, (H, W, 3) uint8."""

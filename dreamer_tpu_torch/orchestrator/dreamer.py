@@ -19,7 +19,14 @@ The rollout keeps its recurrent state, action and frame across rounds (reset
 only at episode ends).  Randomness comes from two ``torch.Generator`` on the
 device: the learner's (replay draws, update noise) seeded from
 ``train.seed`` and the rollout's (policy noise) from ``train.seed + 1``;
-both are checkpointed.
+both are checkpointed, and a resume on the other device type reseeds both
+from ``train.seed`` and the restored iteration.
+
+The envs: ``env_factory``, or ``envs.make_env`` for ``env.env_id`` over the
+base-env maker ``env_maker`` (``"module:function"``, e.g. ``gymnasium:make``;
+``"fake"`` needs none).  Rollout steps them in the in-process ``EnvFarm``,
+or with ``env.async_envs`` in ``AsyncEnvFarm``'s spawned workers; eval
+always in process.
 
 Differences from the JAX orchestrator:
 - The rollout and eval policy computes in the config's compute dtype, through
@@ -28,8 +35,9 @@ Differences from the JAX orchestrator:
   and the eval actions agree with JAX's to 1e-5
   (``tests/test_torch_orchestrator_policy.py``).
 - Single process, one device.  The knobs of the mesh, the host-local actor,
-  the overlapped rollout, the subprocess env farm and NaN debugging raise a
-  ``ValueError`` naming the ROADMAP item that will bring them.
+  the overlapped rollout and NaN debugging raise a ``ValueError`` naming the
+  ROADMAP item that will bring them; so does a compute dtype other than
+  bfloat16 on a CUDA device, whose kernels take bf16 only.
 """
 
 from __future__ import annotations
@@ -47,28 +55,39 @@ import torch
 
 from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import sample_gumbel
-from dreamer_tpu_torch.envs import EnvFarm, make_env
+from dreamer_tpu_torch.envs import AsyncEnvFarm, EnvFarm, make_env, missing_maker_message
 from dreamer_tpu_torch.train.state import AdamState
 from dreamer_tpu_torch.train.step import Policy, Trainer, resolve_device
 from dreamer_tpu_torch.utils import CheckpointManager, MetricsLogger
 from dreamer_tpu_torch.utils.checkpoint import atomic_save, load
 
 
-def refuse_unported(cfg: DreamerConfig) -> None:
-    """Raise ``ValueError`` for a setting the port does not run yet."""
+# A resume whose generator states come from the other device type reseeds
+# both streams from train.seed + RESEED_STRIDE * (iteration + 1), the rollout's
+# one above the learner's.
+RESEED_STRIDE = 1_000_003
+
+
+def refuse_unported(cfg: DreamerConfig, device: torch.device) -> None:
+    """Raise ``ValueError`` for a setting the port does not run yet, and for
+    a compute dtype the card's kernels do not take."""
     r = cfg.runtime
     for on, knob, item in (
             (r.mesh_shape is not None, "runtime.mesh_shape (the mesh and multi-process path)",
-             "Queue 1 item 6, parallel"),
+             "Queue 1 item 7, parallel"),
             (r.rollout_device == "cpu", "runtime.rollout_device='cpu' (the host-local actor)",
-             "Queue 1 item 7, the host-local actor"),
+             "Queue 1 item 4, the host-local actor and the overlapped rollout"),
             (r.async_rollout, "runtime.async_rollout (rollout overlapped with the learner)",
-             "Queue 1 item 7, the host-local actor"),
-            (cfg.env.async_envs, "env.async_envs (the subprocess env farm)",
-             "Queue 1 item 8, AsyncEnvFarm"),
-            (r.debug_nans, "runtime.debug_nans", "Queue 1 item 9, NaN debugging")):
+             "Queue 1 item 4, the host-local actor and the overlapped rollout"),
+            (r.debug_nans, "runtime.debug_nans", "Queue 1 item 5, NaN debugging")):
         if on:
             raise ValueError(f"{knob} is not ported yet: ROADMAP {item}")
+    if device.type == "cuda" and r.compute_dtype != "bfloat16":
+        raise ValueError(
+            f"runtime.compute_dtype={r.compute_dtype!r} on a CUDA device: the card's kernels "
+            "(the GRU cell, the whole-scan GRU, the conv encoder and the imagination) take "
+            "bfloat16 only; set runtime.compute_dtype=bfloat16, or run on the CPU "
+            "(--device cpu)")
 
 
 def _adam_tree(opt: AdamState) -> Dict[str, object]:
@@ -107,12 +126,16 @@ def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 class Dreamer:
     def __init__(self, cfg: DreamerConfig, env_factory: Optional[Callable] = None,
-                 resuming: bool = False, device=None):
+                 env_maker: Optional[str] = None, resuming: bool = False, device=None):
         """``device``: None for the card, or a device name (``"cpu"``).
+        ``env_factory`` builds one env; by default ``make_env`` for
+        ``env.env_id`` over the base-env maker ``env_maker``.
         ``resuming`` says whether this run intends to ``--resume``: it
         decides whether metrics files already in the log_dir are kept as
         earlier legs or archived as a previous run's (``MetricsLogger``)."""
-        refuse_unported(cfg)
+        refuse_unported(cfg, torch.device("cuda" if device is None else device))
+        if env_factory is None and env_maker is None and cfg.env.env_id != "fake":
+            raise ValueError(f"Dreamer: {missing_maker_message(cfg.env.env_id)}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.trainer = Trainer(cfg, device=self.device, seed=cfg.train.seed)
@@ -130,12 +153,15 @@ class Dreamer:
         self._stop_requested = False
         self.stopped = False
 
+        # A partial of the module-level make_env pickles for AsyncEnvFarm's
+        # spawned workers.
         self._env_factory = env_factory or functools.partial(
             make_env, cfg.env.env_id, obs_size=cfg.wm.obs_size,
             action_repeat=cfg.env.action_repeat, crop_rows=cfg.env.crop_rows,
-            max_episode_steps=cfg.env.max_episode_steps)
-        self.farm = EnvFarm([self._env_factory] * cfg.env.num_envs, seed=cfg.train.seed,
-                            next_step=cfg.env.next_step_autoreset)
+            max_episode_steps=cfg.env.max_episode_steps, base_make=env_maker)
+        farm_cls = AsyncEnvFarm if cfg.env.async_envs else EnvFarm
+        self.farm = farm_cls([self._env_factory] * cfg.env.num_envs, seed=cfg.train.seed,
+                             next_step=cfg.env.next_step_autoreset)
         self.eval_env = self._env_factory()
         self._eval_farm: Optional[EnvFarm] = None
         self._eval_seed = cfg.train.seed + 10_000
@@ -537,12 +563,11 @@ class Dreamer:
         if result is None:
             return False
         _, tree = result
+        self._restore_generators(tree)
         self._load_state(tree["state"])
         self._ring_restored = "buffer" in tree
         if self._ring_restored:
             self._load_ring(tree["buffer"])
-        self.rng.set_state(tree["rng"])
-        self.rollout_rng.set_state(tree["rollout_rng"])
         self.iteration = int(tree["iteration"])
         self.farm.seed = int(tree["env_seed"])
         self._eval_seed = int(tree["eval_seed"])
@@ -555,6 +580,28 @@ class Dreamer:
             with open(best_path) as f:
                 self.best_eval = float(json.load(f)["eval_reward"])
         return True
+
+    def _restore_generators(self, tree) -> None:
+        """Continue both saved streams; when they come from the other device
+        type (a CPU generator's state is 5,056 bytes, a CUDA one's 16, and
+        neither takes the other's), reseed both from ``train.seed`` and the
+        restored iteration instead, as JAX's host-side keys would resume on
+        any platform."""
+        gens = (self.rng, self.rollout_rng)
+        saved = (tree["rng"], tree["rollout_rng"])
+        if all(s.numel() == g.get_state().numel() for s, g in zip(saved, gens)):
+            for g, s in zip(gens, saved):
+                g.set_state(s)
+            return
+        iteration = int(tree["iteration"])
+        base = self.cfg.train.seed + RESEED_STRIDE * (iteration + 1)
+        self.rng.manual_seed(base)
+        self.rollout_rng.manual_seed(base + 1)
+        other = "cuda" if self.device.type == "cpu" else "cpu"
+        print(f"resume: the checkpoint's generators are from a {other} device "
+              f"({saved[0].numel()}-byte state), this run is on {self.device}: both streams "
+              f"reseeded from train.seed {self.cfg.train.seed} and iteration {iteration} "
+              f"({base}, {base + 1})", flush=True)
 
     def request_stop(self):
         """Ask the train loop to checkpoint and return after the current

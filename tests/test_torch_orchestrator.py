@@ -18,7 +18,8 @@ package's ``Dreamer``.
 - The rest of the lifecycle's bookkeeping as JAX's tests check it: the live
   ``nu_override``, a graceful stop (checkpoint, ``stopped``) and its resume,
   a fresh start deleting a stale ``kickstart.json``, batched eval
-  compacting episodes of mixed lengths, the knobs that are not ported."""
+  compacting episodes of mixed lengths, the knobs that are not ported and a
+  float32 config on a CUDA device (refused when ``Dreamer`` is built)."""
 
 import copy
 import json
@@ -249,13 +250,21 @@ def test_batched_eval_compacts_episodes_of_mixed_lengths(tmp_path):
     assert d._eval_seed == d.cfg.train.seed + 10_000 + 5
 
 
-@pytest.mark.parametrize("knob", ["runtime.mesh_shape=[1, 1]", "runtime.async_rollout=true",
-                                  "runtime.rollout_device=cpu", "env.async_envs=true",
-                                  "runtime.debug_nans=true"])
+# knob: (device, the refusal).  A float32 config is refused on a CUDA device
+# (its kernels take bf16), which the CPU test names without launching anything.
+REFUSED = {"runtime.mesh_shape=[1, 1]": ("cpu", "ROADMAP Queue 1 item"),
+           "runtime.async_rollout=true": ("cpu", "ROADMAP Queue 1 item"),
+           "runtime.rollout_device=cpu": ("cpu", "ROADMAP Queue 1 item"),
+           "runtime.debug_nans=true": ("cpu", "ROADMAP Queue 1 item"),
+           "runtime.compute_dtype=float32": ("cuda", "bfloat16 only")}
+
+
+@pytest.mark.parametrize("knob", list(REFUSED))
 def test_unported_knobs_raise(tmp_path, knob):
+    device, match = REFUSED[knob]
     cfg = DreamerConfig.from_yaml(SMOKE, overrides(tmp_path) + [knob])
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
-        Dreamer(cfg, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        Dreamer(cfg, device=torch.device(device))
 
 
 def test_run_collects_frames(tmp_path):
