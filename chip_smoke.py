@@ -95,8 +95,33 @@ Phases, each printing its lines; any failure exits non-zero:
             and the farm's seed counter; the medians of perf/rollout_s and
             perf/env_steps_per_s beside the one-env leg's, and the farm's
             step beside one env's step of the same stack in this process.
-11. the "kernels" JSON line (each kernel's launches on the main path,
-            train_iteration, and by path), then the result line.
+11. actor-learner lifecycle: cli.train.main on configs/car_racer_64env.yaml
+            (64 envs in AsyncEnvFarm's workers, encoder and decoder 48/96,
+            batch 128, the host-local float32 actor on the CPU fed a bf16
+            weight broadcast, asynchronous checkpoints) on the fake env with
+            a 12,800-step ring, 1 kickstart round and 2 iterations, then
+            --resume to 3; then 2 iterations with runtime.async_rollout, and
+            2 with the card's actor (runtime.rollout_device=default): after
+            each broadcast the actor's weights are the learner's rounded to
+            bf16, exactly; one broadcast between rounds and none inside one;
+            no kernel launched by the host actor's rollout and eval while the
+            learner launches all four; the resume restoring the iteration,
+            the ring and both generators (the learner's cuda, the actor's cpu)
+            as saved; each asynchronous save returning before its file
+            lands, LATEST naming the newest, the restored step and weights
+            the save's; each overlapped round acting with the weights of
+            before its iteration's update, the ring holding every round; a
+            metrics row an iteration; each variant's medians, the
+            broadcast's ms and MB, each save's blocking and writing ms, the
+            host actor's step at several thread counts; then each kernel held
+            against its plain version at the operands this learner gave it
+            (the encoder over the update's and the warm start's frames, the
+            GRU cell at 128 rows, the whole-scan GRU at T 1 over the update's
+            rows, the imagination at B 128 x T 30), with its time, plain
+            time, library time and bound.
+12. the "kernels" JSON line (each kernel's launches on the main path,
+            train_iteration, and by path; its numbers at the 64-env shapes
+            as *_at_64env_* keys), then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
 """
@@ -189,6 +214,26 @@ ASYNC_ITERATIONS = (2, 3)
 ASYNC_MAKER = "chip_smoke:lunar_lander_stand_in"
 # LunarLander-v3 renders 400 x 600 RGB frames.
 STAND_IN_FRAME = (400, 600)
+# The actor-learner split: configs/car_racer_64env.yaml (BASELINE config 3) as
+# published (64 envs in AsyncEnvFarm, encoder and decoder 48/96 with hidden
+# 400, batch 128, the host-local actor fed a bf16 broadcast, asynchronous
+# checkpoints) but for these cuts: the fake env (no Box2D on the card's
+# machine), a ring of 200 steps an env (12,800 of 512,000: every checkpoint
+# writes it whole, and capacity is not a width), a kickstart round, 2
+# iterations with an eval and a checkpoint at the second, two short eval
+# episodes that end apart.  The first variant is then resumed to 3; the
+# other two, the overlapped rollout and the card's actor at 64 rows, are not.
+CONFIG_64ENV = ROOT / "configs" / "car_racer_64env.yaml"
+LEG_64ENV = ("env.env_id=fake", "train.buffer_size=12800", "train.random_iterations=1",
+             "train.eval_every=2", "train.checkpoint_every=2", "train.eval_episodes=2",
+             "train.final_eval_episodes=2")
+ITERATIONS_64ENV = (2, 3)
+VARIANTS_64ENV = (("host_actor", (), 2, True),
+                  ("overlapped", ("runtime.async_rollout=true",), 2, False),
+                  ("card_actor", ("runtime.rollout_device=default",), 2, False))
+EVAL_64ENV_STEPS = (10, 20)
+# Timed policy_act_observe steps of the host actor at each thread count.
+HOST_ACTOR_STEPS = 5
 
 
 def fail(msg: str) -> None:
@@ -1581,6 +1626,527 @@ def run_async_lifecycle(cfg, card: str, one_env: dict) -> dict:
     return launches
 
 
+def hold_at_path(captured: dict, card: str) -> dict:
+    """Each kernel held against its plain version at the operands the
+    64-env learner gave it (``captured``: kernel -> {shape: operands}),
+    with its time, its plain version's, one library call's and its bound.
+    Returns, by kernel, the numbers for the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from dreamer_tpu_torch.ops import conv_cuda, gru_cuda
+    from dreamer_tpu_torch.ops import gru_scan_cuda as gs
+    from dreamer_tpu_torch.ops import imagine_cuda as ic
+
+    out = {}
+
+    def record(name, key, err, t, extra=""):
+        line = out.setdefault(name, {"max_abs_err": 0.0})
+        line["max_abs_err"] = max(line["max_abs_err"], err)
+        line[key] = t
+        print(f"lifecycle_64env: {name} at the path's {key}: kernel_ms={t['ms']:.4f} "
+              f"plain_ms={t['plain_ms']:.4f} library_ms={fmt_ms(t['library_ms'])} "
+              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}){extra} on {card}", flush=True)
+
+    # The encoder: four bf16 convs + SiLU over the update's and the warm
+    # start's frames, cuDNN in the faster of NCHW and channels_last beside it.
+    for n, (obs, table, ws, bs) in sorted(captured["encoder"].items()):
+        got = conv_cuda.encoder_forward(obs, ws, bs, table)
+        err = max_err(got, conv_cuda.encoder_forward_plain(obs, ws, bs, table),
+                      conv_cuda.tolerance, f"lifecycle_64env: encoder at the path's {n} frames")
+        oihw = [w.permute(3, 2, 0, 1).contiguous() for w in ws]
+        b16 = [b.to(torch.bfloat16) for b in bs]
+
+        def library(fmt, obs=obs, table=table, oihw=oihw, b16=b16, n=n):
+            wf = [w.contiguous(memory_format=fmt) for w in oihw]
+
+            def run():
+                x = table[obs.long()].permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+                for w, b in zip(wf, b16):
+                    x = F.silu(F.conv2d(x, w, b, stride=2, padding=1))
+                return x.permute(0, 2, 3, 1).reshape(n, -1)
+            return run
+
+        t = {"ms": cuda_ms(lambda: conv_cuda.encoder_forward(obs, ws, bs, table), 20),
+             "plain_ms": cuda_ms(lambda: conv_cuda.encoder_forward_plain(obs, ws, bs, table),
+                                 10),
+             "library_ms": min(cuda_ms(library(fmt), 20)
+                               for fmt in (torch.contiguous_format, torch.channels_last))}
+        flops, cin, hw = 0, 3, obs.shape[1] * obs.shape[2]
+        for w in ws:
+            hw //= 4
+            flops += 2 * n * hw * w.shape[3] * 16 * cin
+            cin = w.shape[3]
+        nbytes = obs.numel() + 2 * (sum(w.numel() for w in ws) + got.numel() + 256) \
+            + 4 * sum(b.numel() for b in bs)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+        record("encoder", f"{n} frames", err, t,
+               f" ({flops / 1e9:.2f} GFLOP, channels {[w.shape[3] for w in ws]})")
+
+    # The GRU cell at the posterior's and the warm start's rows.
+    for n, (x, h, w) in sorted(captured["gru_cell"].items()):
+        err = max_err(gru_cuda.gru_cell(x, h, *w), gru_cuda.gru_cell_plain(x, h, *w),
+                      gru_cuda.tolerance, f"lifecycle_64env: GRU cell at the path's {n} rows")
+        I, H = x.shape[1], h.shape[1]
+        lib = [w[0][:, :I].contiguous(), w[1][:, :H].contiguous(), w[2].to(torch.bfloat16),
+               w[3].to(torch.bfloat16)]
+        t = {"ms": cuda_ms(lambda: gru_cuda.gru_cell(x, h, *w), 200),
+             "plain_ms": cuda_ms(lambda: gru_cuda.gru_cell_plain(x, h, *w), 200),
+             "library_ms": cuda_ms(lambda: torch.gru_cell(x, h, *lib), 200)}
+        nbytes = 2 * (n * I + n * H + 3 * H * (I + H) + n * H) + 2 * 6 * H
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 2 * n * 3 * H * (I + H))
+        record("gru_cell", f"{n} rows", err, t)
+
+    # The whole-scan GRU at T 1 over the update's rows (the posterior scan's
+    # backward), cuDNN's GRU (h_seq only) beside it.
+    for (T, B), (xs, h0, ops) in sorted(captured["gru_scan"].items()):
+        got = gs.gru_scan(xs, h0, *ops)
+        stats = gs.compare(got, gs.gru_scan_plain(xs, h0, *ops))
+        if stats["failures"]:
+            fail(f"lifecycle_64env: gru_scan at T {T} x B {B}: {stats['failures']}")
+        err = max(stats[f"max_abs_err_{k}"] for k in gs.NAMES)
+        print("lifecycle_64env: gru_scan at the path's T " + f"{T} x B {B}: max |kernel - "
+              "plain| " + " ".join(f"{k} {stats[f'max_abs_err_{k}']:.3e}" for k in gs.NAMES)
+              + f" (tol {gs.TOL} abs + rel)", flush=True)
+        I, H = xs.shape[2], h0.shape[1]
+        lib_gru = torch.nn.GRU(I, H).to("cuda", torch.bfloat16)
+        with torch.no_grad():
+            lib_gru.weight_ih_l0.copy_(ops[0][:, :I])
+            lib_gru.weight_hh_l0.copy_(ops[1][:, :H])
+            lib_gru.bias_ih_l0.copy_(ops[2])
+            lib_gru.bias_hh_l0.copy_(ops[3])
+        lib_gru.flatten_parameters()
+        h16 = h0.to(torch.bfloat16)[None]
+        with torch.no_grad():
+            t = {"ms": cuda_ms(lambda: gs.gru_scan(xs, h0, *ops), 20),
+                 "plain_ms": cuda_ms(lambda: gs.gru_scan_plain(xs, h0, *ops), 20),
+                 "library_ms": cuda_ms(lambda: lib_gru(xs, h16), 20)}
+        t["bound_ms"], t["bound_by"] = bound_ms(*gs.bound_numbers(T, B, I, H))
+        record("gru_scan", f"T {T} x B {B}", err, t)
+
+    # The imagination at the AC update's B x T, the path's own weights and
+    # start states, held step by step (hold_rollout).
+    for (T, B), (h0, z0, eps, gum, weights, unimix, min_std) in sorted(
+            captured["imagine_rollout"].items()):
+        got = ic.imagine_rollout(h0, z0, eps, gum, weights, unimix, min_std)
+        stats = report_hold(ic.hold_rollout(got, eps, gum, weights, unimix, min_std),
+                            f"lifecycle_64env: the path's B={B} T={T} rollout")
+        err = max(stats[f"max_abs_err_{k}"] for k in ("h_next", "mu", "sigma", "action"))
+        t = {"ms": cuda_ms(lambda: ic.imagine_rollout(h0, z0, eps, gum, weights, unimix,
+                                                      min_std), 20),
+             "plain_ms": cuda_ms(lambda: ic.imagine_rollout_plain(h0, z0, eps, gum, weights,
+                                                                  unimix, min_std), 3, 1),
+             "library_ms": None}
+        nbytes, flops = ic.bound_numbers(B, T, weights, ic.dims_of(weights, h0, z0, eps))
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+        record("imagine_rollout", f"B {B} x T {T}", err, t)
+    return out
+
+
+def run_actor_learner_lifecycle(card: str) -> dict:
+    """configs/car_racer_64env.yaml through ``cli.train.main``, as published
+    but for ``LEG_64ENV``'s cuts: 64 envs in AsyncEnvFarm's workers, the
+    host-local float32 actor on the CPU fed by a bfloat16 weight broadcast,
+    asynchronous checkpoints; then ``--resume``; then two shorter variants,
+    the overlapped rollout and the card's actor at 64 rows.  Gates the
+    broadcast (exact, one before a round and none inside one), no kernel in
+    the host actor's rollout and eval while the learner launches all four,
+    the resume (iteration, ring, both generators), the asynchronous save
+    (returns before its file lands, ``LATEST``, the restored step and
+    weights), the overlap's staleness (each overlapped round acts with the
+    weights of before its iteration's update) and the metrics rows; then
+    holds each kernel against its plain version at the operands this
+    learner gave it.  Returns the main run's launches and the kernels'
+    numbers at this leg's shapes."""
+    import csv
+    import functools
+    import tempfile
+    import threading
+    import types
+
+    import torch
+
+    from dreamer_tpu_torch.cli import train as cli
+    from dreamer_tpu_torch.config import DreamerConfig
+    from dreamer_tpu_torch.envs import EnvFarm, FakeEnv, vector
+    from dreamer_tpu_torch.nets import gru, wm_nets
+    from dreamer_tpu_torch.ops import (conv_cuda, gru_cuda, gru_scan_cuda, imagine_scan,
+                                       observe_scan)
+    from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
+    from dreamer_tpu_torch.ops.imagine_cuda import imagine_rollout
+    from dreamer_tpu_torch.orchestrator import broadcast
+    from dreamer_tpu_torch.orchestrator import dreamer as orch
+    from dreamer_tpu_torch.train import step as train_step
+    from dreamer_tpu_torch.utils import checkpoint as ckpt_mod
+    from dreamer_tpu_torch.utils.checkpoint import load
+
+    cfg = DreamerConfig.from_yaml(str(CONFIG_64ENV), LEG_64ENV)
+    r, t = cfg.runtime, cfg.train
+    if (r.rollout_device, r.broadcast_dtype, r.async_checkpoint, cfg.env.num_envs,
+            cfg.env.async_envs, t.batch_size) != ("cpu", "bfloat16", True, 64, True, 128):
+        fail(f"lifecycle_64env: {CONFIG_64ENV.name} is not the published configuration")
+    kernels = {"gru_cell": gru_cuda.gru_cell, "gru_scan": gru_scan,
+               "encoder": conv_cuda.encoder_forward, "imagine_rollout": imagine_rollout}
+    real = {"collect": orch.Dreamer._collect_chunk, "eval": orch.Dreamer._evaluate_batched,
+            "restore": orch.Dreamer.restore_latest, "flatten": broadcast.flatten,
+            "unflatten": broadcast.unflatten, "save": ckpt_mod.CheckpointManager.save,
+            "iteration": train_step.Trainer.train_iteration, "cell": gru.gru_cell,
+            "encode": wm_nets.encode, "imagine": imagine_scan.imagine_rollout,
+            "farm_step": vector.AsyncEnvFarm.step}
+    # What a run saw, made anew for each run.
+    log = {}
+
+    def fresh():
+        log.clear()
+        log.update(phase={p: dict.fromkeys(kernels, 0) for p in ("rollout", "eval")},
+                   rounds=[], broadcasts=[], bcast_ms=[], bcast_mb=[], saves=[], restored={},
+                   stale=[], thread_kernels=[], round_s=[], learner_s=[], farm_ms=[])
+
+    # The kernels' operands at the 64-env learner's shapes, first call of each.
+    captured = {name: {} for name in kernels}
+
+    def keep(name, key, operands):
+        if key not in captured[name]:
+            captured[name][key] = tuple(o.clone() if isinstance(o, torch.Tensor) else
+                                        [w.clone() for w in o] if isinstance(o, (list, tuple))
+                                        else o for o in operands)
+
+    def on_card(name, tensor):
+        if tensor.is_cuda and threading.current_thread().name.startswith("rollout"):
+            log["thread_kernels"].append(name)
+        return tensor.is_cuda
+
+    def cell(x, h, *w):
+        if on_card("gru_cell", x) and x.shape[0] == t.batch_size:
+            keep("gru_cell", x.shape[0], (x, h, list(w)))
+        return real["cell"](x, h, *w)
+
+    def encode(obs, table, operands, params):
+        if on_card("encoder", obs) and obs.shape[0] >= t.batch_size:
+            keep("encoder", obs.shape[0], (obs, table, *operands))
+        return real["encode"](obs, table, operands, params)
+
+    def scan(xs, h0, *ops):
+        if on_card("gru_scan", xs):
+            keep("gru_scan", tuple(xs.shape[:2]), (xs, h0, list(ops)))
+        return gru_scan_cuda.gru_scan(xs, h0, *ops)
+
+    # The posterior scan reaches the whole-scan GRU as gru_scan_cuda.gru_scan;
+    # it sees this module instead (the wrapper's counter stays its own).
+    scan_module = types.SimpleNamespace(**{**vars(gru_scan_cuda), "gru_scan": scan})
+
+    def imagine(h0, z0, eps, gum, weights, unimix, min_std):
+        if on_card("imagine_rollout", h0):
+            keep("imagine_rollout", tuple(eps.shape[:2]),
+                 (h0, z0, eps, gum, list(weights), unimix, min_std))
+        return real["imagine"](h0, z0, eps, gum, weights, unimix, min_std)
+
+    def stamp(d):
+        return tuple((p.data_ptr(), p._version) for p in d._learner_weights())
+
+    def probe(params):
+        """Two tensors that tell weights apart: the first world-model and the
+        first actor parameter."""
+        return [params[0].detach().float().cpu().clone(),
+                params[-1].detach().float().cpu().clone()]
+
+    def collect(self, random_policy):
+        overlapped = threading.current_thread().name.startswith("rollout")
+        before = {n: k.launches for n, k in kernels.items()}
+        n_bcast = len(log["broadcasts"])
+        fresh_actor = overlapped or self._actor_stamp == stamp(self)
+        actor = [*self.policy.rssm.nets.parameters(), *self.policy.actor.parameters()]
+        start_w = probe(actor)
+        start = time.perf_counter()
+        out = real["collect"](self, random_policy)
+        if not random_policy:
+            log["round_s"].append(time.perf_counter() - start)
+        log["rounds"].append({"broadcasts_before": n_bcast, "overlapped": overlapped,
+                              "random": random_policy, "fresh": fresh_actor,
+                              "mid_round_broadcasts": len(log["broadcasts"]) - n_bcast,
+                              "weights": start_w, "unchanged": all(
+                                  torch.equal(a, b) for a, b in zip(start_w, probe(actor))),
+                              "device": self.policy.device.type})
+        if not overlapped:
+            for n, k in kernels.items():
+                log["phase"]["rollout"][n] += k.launches - before[n]
+        return out
+
+    def evaluate(self, episodes, max_steps):
+        if self._eval_farm is None:
+            self._eval_farm = EnvFarm(
+                [functools.partial(FakeEnv, obs_size=tuple(self.cfg.wm.obs_size), episode_len=n)
+                 for n in EVAL_64ENV_STEPS], seed=self._eval_seed)
+        before = {n: k.launches for n, k in kernels.items()}
+        out = real["eval"](self, episodes, max_steps)
+        for n, k in kernels.items():
+            log["phase"]["eval"][n] += k.launches - before[n]
+        return out
+
+    def flatten(tensors, wire):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        flat = real["flatten"](tensors, wire)
+        log["bcast_ms"].append((time.perf_counter() - start) * 1e3)
+        log["bcast_mb"].append(flat.numel() * flat.element_size() / 1e6)
+        log["broadcasts"].append(list(tensors))
+        return flat
+
+    def unflatten(flat, into):
+        start = time.perf_counter()
+        real["unflatten"](flat, into)
+        log["bcast_ms"][-1] += (time.perf_counter() - start) * 1e3
+        learner = log["broadcasts"][-1]
+        bad = sum(not torch.equal(a, w.detach().to(torch.bfloat16).float().cpu())
+                  for a, w in zip(into, learner))
+        if bad or len(into) != len(learner):
+            fail(f"lifecycle_64env: after a broadcast {bad} of {len(into)} actor tensors are "
+                 "not the learner's rounded to bf16 and back")
+
+    def save(self, step, tree):
+        s = tree["state"]
+        key = next(iter(s["wm"]))
+        log["saves"].append({"step": step, "state_step": int(s["step"]),
+                             "param": key, "sum": float(s["wm"][key].double().sum()),
+                             "manager": self})
+        return real["save"](self, step, tree)
+
+    def restore(self):
+        found = real["restore"](self)
+        key = next(iter(self.state.wm.nets.state_dict()))
+        log["restored"].update(
+            found=found, iteration=self.iteration, size=self.buf.size,
+            rng=self.rng.get_state(), rollout_rng=self.rollout_rng.get_state(),
+            devices=(self.rng.device.type, self.rollout_rng.device.type),
+            state_step=int(self.state.step),
+            sum=float(self.state.wm.nets.state_dict()[key].double().sum()))
+        return found
+
+    def iteration(self, state, ring, generator, nu=None):
+        log["stale"].append(probe([*state.wm.nets.parameters(),
+                                   *state.ac.actor.parameters()]))
+        start = time.perf_counter()
+        out = real["iteration"](self, state, ring, generator, nu)
+        torch.cuda.synchronize()
+        log["learner_s"].append(time.perf_counter() - start)
+        return out
+
+    def farm_step(self, actions):
+        start = time.perf_counter()
+        out = real["farm_step"](self, actions)
+        log["farm_ms"].append((time.perf_counter() - start) * 1e3)
+        return out
+
+    def rows_of(logs):
+        rows = []
+        for name in ("metrics.leg1.csv", "metrics.csv"):
+            if (logs / name).exists():
+                with open(logs / name) as f:
+                    rows += [row for row in csv.DictReader(f) if row.get("wm/loss")]
+        return rows
+
+    first, total = ITERATIONS_64ENV
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        patches = ((orch.Dreamer, "_collect_chunk", collect),
+                   (orch.Dreamer, "_evaluate_batched", evaluate),
+                   (orch.Dreamer, "restore_latest", restore), (broadcast, "flatten", flatten),
+                   (broadcast, "unflatten", unflatten),
+                   (ckpt_mod.CheckpointManager, "save", save),
+                   (train_step.Trainer, "train_iteration", iteration), (gru, "gru_cell", cell),
+                   (wm_nets, "encode", encode), (observe_scan, "gru_scan_cuda", scan_module),
+                   (imagine_scan, "imagine_rollout", imagine),
+                   (vector.AsyncEnvFarm, "step", farm_step))
+        originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
+        for owner, attr, fn in patches:
+            setattr(owner, attr, fn)
+        try:
+            for variant, extra, iterations, resume in VARIANTS_64ENV:
+                models, logs = Path(tmp) / variant / "models", Path(tmp) / variant / "logs"
+                argv = ["--config", str(CONFIG_64ENV), "--overrides", *LEG_64ENV, *extra,
+                        f"runtime.checkpoint_dir={models}", f"runtime.log_dir={logs}",
+                        f"train.training_iterations={iterations}"]
+                fresh()
+                for k in kernels.values():
+                    k.launches = 0
+                start = time.perf_counter()
+                cli.main(argv)
+                run = {"seconds": time.perf_counter() - start, "log": dict(log),
+                       "launches": {n: k.launches for n, k in kernels.items()}}
+                run["latest"] = (models / "LATEST").read_text()
+                run["saved"] = load(str(models / f"ckpt_{iterations}"))
+                if resume:
+                    fresh()
+                    for k in kernels.values():
+                        k.launches = 0
+                    start = time.perf_counter()
+                    cli.main(["--resume"] + argv[:-1] + [f"train.training_iterations={total}"])
+                    run["resumed"] = {"seconds": time.perf_counter() - start, "log": dict(log),
+                                      "launches": {n: k.launches for n, k in kernels.items()}}
+                run["rows"] = rows_of(logs)
+                results[variant] = run
+        finally:
+            for owner, attr, fn in originals:
+                setattr(owner, attr, fn)
+
+    seq_len = t.sequence_length
+    host, overlap, card_actor = (results[v[0]] for v in VARIANTS_64ENV)
+    # The host actor: exact broadcasts (gated in unflatten), one before each
+    # training round and none inside a round, no kernel in rollout or eval.
+    for label, run in (("host actor", host["log"]), ("host actor, resumed",
+                                                       host["resumed"]["log"]),
+                       ("overlapped", overlap["log"])):
+        rounds = run["rounds"]
+        if not rounds or not all(r["device"] == "cpu" and r["fresh"] and r["unchanged"]
+                                 and not r["mid_round_broadcasts"] for r in rounds):
+            fail(f"lifecycle_64env ({label}): a round began on stale weights or the actor "
+                 f"changed inside a round: {[(r['fresh'], r['unchanged']) for r in rounds]}")
+        steps = [b["broadcasts_before"] for b in rounds]
+        if any(b - a != 1 for a, b in zip(steps, steps[1:])):
+            fail(f"lifecycle_64env ({label}): broadcasts before each round {steps}, expected "
+                 "one between consecutive rounds")
+        if any(run["phase"][p][n] for p in run["phase"] for n in kernels) or \
+                run["thread_kernels"]:
+            fail(f"lifecycle_64env ({label}): the host actor launched {run['phase']} "
+                 f"(from the rollout thread: {run['thread_kernels']})")
+    for label, launches in (("host actor", host["launches"]),
+                            ("resumed", host["resumed"]["launches"])):
+        if not all(launches.values()):
+            fail(f"lifecycle_64env ({label}): the learner launched {launches}")
+    # The card's actor at 64 rows launches the GRU cell and the encoder.
+    cphase = card_actor["log"]["phase"]["rollout"]
+    if not (cphase["gru_cell"] and cphase["encoder"]) or card_actor["log"]["broadcasts"]:
+        fail(f"lifecycle_64env (card actor): rollout launched {cphase}, broadcasts "
+             f"{len(card_actor['log']['broadcasts'])}")
+    # The resume: iteration, ring, both generators, no reseed.
+    saved = host["saved"]
+    got = host["resumed"]["log"]["restored"]
+    if not (got.get("found") and got["iteration"] == first
+            and got["size"] == int(saved["buffer"]["size"])
+            and torch.equal(got["rng"], saved["rng"])
+            and torch.equal(got["rollout_rng"], saved["rollout_rng"])
+            and got["devices"] == ("cuda", "cpu")):
+        fail(f"lifecycle_64env: the resume restored iteration {got.get('iteration')}, ring "
+             f"{got.get('size')}, generators on {got.get('devices')}, expected iteration "
+             f"{first}, ring {int(saved['buffer']['size'])}, the saved generator states on "
+             "(cuda, cpu)")
+    # The asynchronous saves: each returned before its file landed, LATEST
+    # names the newest, and the restored step and weights are the save's.
+    saves = host["log"]["saves"]
+    timings = saves[-1]["manager"].timings
+    if not saves or not all(rec.get("returned_at", 1e30) < rec.get("landed_at", 0)
+                            for rec in timings):
+        fail(f"lifecycle_64env: an asynchronous save returned after its file landed: "
+             f"{timings}")
+    if host["latest"] != str(first) or host["resumed"]["log"]["saves"][-1]["step"] != total:
+        fail(f"lifecycle_64env: LATEST is {host['latest']}, expected {first}")
+    last = saves[-1]
+    if (got["state_step"], got["sum"]) != (last["state_step"], last["sum"]):
+        fail(f"lifecycle_64env: restored step {got['state_step']} and {last['param']} sum "
+             f"{got['sum']}, saved {last['state_step']} and {last['sum']}")
+    # The overlap: each overlapped round acted with the weights of before
+    # its iteration's update (bf16-rounded, as the wire carries them).
+    olog = overlap["log"]
+    orounds = [r for r in olog["rounds"] if r["overlapped"]]
+    if len(orounds) != first or len(olog["stale"]) != first:
+        fail(f"lifecycle_64env (overlapped): {len(orounds)} overlapped rounds, "
+             f"{len(olog['stale'])} updates")
+    for k, (rnd, before) in enumerate(zip(orounds, olog["stale"]), 1):
+        want = [b.to(torch.bfloat16).float() for b in before]
+        if not all(torch.equal(a, b) for a, b in zip(rnd["weights"], want)):
+            fail(f"lifecycle_64env (overlapped): the round of iteration {k} did not act with "
+                 "the weights of before its update")
+    if int(overlap["saved"]["buffer"]["size"]) != len(olog["rounds"]) * seq_len:
+        fail(f"lifecycle_64env (overlapped): the ring holds "
+             f"{int(overlap['saved']['buffer']['size'])} steps an env after "
+             f"{len(olog['rounds'])} rounds of {seq_len}")
+    # A metrics row for each iteration, finite.
+    for variant, run in results.items():
+        want_iters = list(range(1, (total if "resumed" in run else first) + 1))
+        if [int(row["iteration"]) for row in run["rows"]] != want_iters:
+            fail(f"lifecycle_64env ({variant}): metrics rows for "
+                 f"{[row['iteration'] for row in run['rows']]}")
+        for row in run["rows"]:
+            for key in ("wm/loss", "ac/loss_actor", "ac/loss_critic"):
+                if not math.isfinite(float(row[key])):
+                    fail(f"lifecycle_64env ({variant}): iteration {row['iteration']} {key}")
+    for need in (("encoder", 2), ("gru_cell", 1), ("gru_scan", 1), ("imagine_rollout", 1)):
+        if len(captured[need[0]]) < need[1]:
+            fail(f"lifecycle_64env: the learner gave {need[0]} only {list(captured[need[0]])}")
+
+    def median(run, key):
+        vals = [float(row[key]) for row in run["rows"] if row.get(key)]
+        return statistics.median(vals) if vals else None
+
+    print(f"lifecycle_64env: cli.train on {CONFIG_64ENV.name} with {' '.join(LEG_64ENV)}: "
+          f"64 envs in AsyncEnvFarm, the host actor in float32 on the CPU fed a bf16 "
+          f"broadcast, asynchronous checkpoints; runs "
+          + ", ".join(f"{v} {results[v]['seconds']:.2f} s" for v in results)
+          + f", resumed {host['resumed']['seconds']:.2f} s on {card}", flush=True)
+    for variant, run in results.items():
+        print(f"lifecycle_64env: {variant}: median perf/env_steps_per_s "
+              f"{median(run, 'perf/env_steps_per_s'):.2f}, perf/rollout_s "
+              f"{fmt_ms(median(run, 'perf/rollout_s'))}, perf/learner_s "
+              f"{fmt_ms(median(run, 'perf/learner_s'))} (s); a policy round "
+              f"{statistics.median(run['log']['round_s']):.4f} s, a train_iteration to its "
+              f"last kernel {statistics.median(run['log']['learner_s']):.4f} s, an "
+              f"AsyncEnvFarm.step of 64 envs {statistics.median(run['log']['farm_ms']):.2f} ms "
+              f"(medians); iterations {[row['iteration'] for row in run['rows']]}; launches "
+              f"{run['launches']}; in rollout {run['log']['phase']['rollout']}, in eval "
+              f"{run['log']['phase']['eval']}", flush=True)
+    bms, bmb = host["log"]["bcast_ms"], host["log"]["bcast_mb"]
+    print(f"lifecycle_64env: broadcast: {len(bms)} in the first run, median "
+          f"{statistics.median(bms):.2f} ms (min {min(bms):.2f}, max {max(bms):.2f}) for "
+          f"{bmb[0]:.2f} MB of bf16 (cast, concatenate, one copy to the host, then into the "
+          f"actor), each exact; rounds {len(host['log']['rounds'])}, every one on fresh "
+          f"weights on {card}", flush=True)
+    for rec in timings:
+        print(f"lifecycle_64env: asynchronous save of step {rec['step']}: blocked "
+              f"{rec['blocking_s'] * 1e3:.2f} ms, wrote {rec['write_s'] * 1e3:.2f} ms "
+              f"(ring of {t.buffer_size} steps, {saved['buffer']['obs'].numel() / 1e6:.1f} MB "
+              f"of frames) on {card}", flush=True)
+    print(f"lifecycle_64env: resume restored iteration {got['iteration']}, a ring of "
+          f"{got['size']} steps an env, the learner's cuda and the actor's cpu generator "
+          f"states as saved (no reseed), step {got['state_step']}; overlapped rounds acted "
+          f"with the weights of before their update; the learner's kernels at this leg's "
+          f"shapes: " + ", ".join(f"{n} {sorted(v)}" for n, v in captured.items()), flush=True)
+    measure_host_actor_threads(cfg, card)
+    kernels_at = hold_at_path(captured, card)
+    return host["launches"], host["resumed"]["launches"], kernels_at
+
+
+def measure_host_actor_threads(cfg, card: str) -> None:
+    """The host actor's policy_act_observe at 64 rows on the CPU, in float32,
+    at several intra-op thread counts (the default is the host's cores)."""
+    import os
+
+    import torch
+
+    from dreamer_tpu_torch.train import Policy
+
+    pol = Policy(cfg.with_override("runtime.compute_dtype=float32"), device="cpu", seed=0)
+    n, c = cfg.env.num_envs, cfg.wm
+    gen = torch.Generator().manual_seed(5)
+    obs = torch.randint(0, 256, (n, *c.obs_size, 3), dtype=torch.uint8, generator=gen)
+    h, z = pol.policy_reset(obs, pol.sample_noise(n, gen).gumbel_obs)
+    a = torch.zeros(n, cfg.env.action_dim)
+    done = torch.zeros(n, dtype=torch.bool)
+    default = torch.get_num_threads()
+    times = {}
+    try:
+        for threads in sorted({1, 2, 4, default}):
+            torch.set_num_threads(threads)
+            pol.policy_act_observe(h, z, a, obs, done, pol.sample_noise(n, gen))
+            start = time.perf_counter()
+            for _ in range(HOST_ACTOR_STEPS):
+                pol.policy_act_observe(h, z, a, obs, done, pol.sample_noise(n, gen))
+            times[threads] = (time.perf_counter() - start) / HOST_ACTOR_STEPS * 1e3
+    finally:
+        torch.set_num_threads(default)
+    print(f"lifecycle_64env: host actor policy_act_observe at {n} rows in float32, ms/step by "
+          f"intra-op threads (default {default} on {os.cpu_count()} cores): "
+          + ", ".join(f"{k}: {v:.2f}" for k, v in times.items()) + f" on {card}", flush=True)
+
 def kernel_faults():
     """Faulty kernels whose card-vs-CPU readings ``check_ac_update_vs_cpu``
     prints beside the right kernels' reading: (name, module, the name the
@@ -1754,6 +2320,21 @@ def main() -> int:
         if on_async[k["name"]] == 0:
             fail(f"the async lifecycle path never launched {k['name']}")
         k["launches_by_path"]["lifecycle_async"] = on_async[k["name"]]
+
+    # car_racer_64env.yaml: the host actor, the overlap, the card's actor; each
+    # kernel held at the 64-env learner's shapes.
+    on_64env, on_64env_resumed, at_64env = run_actor_learner_lifecycle(card)
+    for k in kernels:
+        n = on_64env[k["name"]] + on_64env_resumed[k["name"]]
+        if n == 0:
+            fail(f"the 64-env lifecycle path never launched {k['name']}")
+        k["launches_by_path"]["lifecycle_64env"] = n
+        for shape, tm in at_64env[k["name"]].items():
+            if shape == "max_abs_err":
+                k["max_abs_err_at_64env"] = tm
+                continue
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                k[f"{key}_at_64env_{shape.replace(' ', '_')}"] = tm[key]
 
     # Times at the main path's shapes: the GRU cell at 50 rows, the whole-scan
     # GRU at T 1 x 1500, the encoder at 1500 frames, the imagination at B 50,

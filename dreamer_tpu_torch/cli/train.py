@@ -11,8 +11,10 @@ function with ``gymnasium.make``'s signature that builds the base env under
 the wrapper stack (``gymnasium:make`` on a machine with gymnasium and
 Box2D); it has no default, so the port names no gymnasium module.  Honours
 SM_MODEL_DIR (checkpoints) and SM_OUTPUT_DATA_DIR (logs).  SIGTERM
-checkpoints after the current iteration and exits 75 (EX_TEMPFAIL), so a
-supervisor resumes the run instead of reading it as finished.
+checkpoints after the current iteration and exits 75 (EX_TEMPFAIL), once the
+checkpoint is on disk, so a supervisor resumes the run instead of reading it
+as finished.  ``runtime.debug_nans`` stops the run at the first non-finite
+value of an update or a policy step with ``FloatingPointError``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,11 @@ def main(argv=None) -> float:
     device = resolve_device(args.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}",
           flush=True)
+    if cfg.runtime.debug_nans:
+        # The port of jax_debug_nans: the first non-finite value of an update
+        # or a policy step raises FloatingPointError naming it.
+        print("debug_nans: every update and policy step stops at its first non-finite value",
+              flush=True)
     dreamer = Dreamer(cfg, env_maker=args.env_maker, resuming=args.resume, device=device)
     previous = signal.signal(signal.SIGTERM, lambda *_: dreamer.request_stop())
     try:

@@ -4,8 +4,19 @@
 Host responsibilities only: env stepping, replay writes, eval cadence,
 checkpoints and metrics.  The compute is the ``Trainer``'s (``wm_step``,
 ``train_iteration``) and the ``Policy``'s (one ``policy_act_observe`` call
-per env step), which act on the learner's own modules, so every round
-rolls out with the weights of the last update.
+per env step).  By default the policy acts on the learner's own modules, in
+the compute dtype and through the card's kernels, so every round rolls out
+with the weights of the last update.  With ``runtime.rollout_device='cpu'``
+(the host-local actor, JAX's ``dreamer.py:322-405``) it acts in float32 on
+a copy of its own on the CPU, refreshed before a round or an eval whenever
+the learner's weights have changed: one device-to-host copy of every
+world-model and actor parameter, cast to ``runtime.broadcast_dtype`` on the
+learner's device first (``broadcast``); rollout and eval then make no CUDA
+call, and a round's one ring write is the only host-to-device traffic.
+``runtime.async_rollout`` (which needs the host-local actor) collects the
+next round on a thread while the learner updates on the ring as it stood
+before that round, then writes the round: one round of staleness, as JAX's
+``dreamer.py:981-1050``.
 
 Lifecycle (``train``):
   kickstart — ``train.random_iterations`` rounds of random-policy rollout,
@@ -16,11 +27,17 @@ Lifecycle (``train``):
   final     — a ``final_eval_episodes`` eval and a checkpoint
 
 The rollout keeps its recurrent state, action and frame across rounds (reset
-only at episode ends).  Randomness comes from two ``torch.Generator`` on the
-device: the learner's (replay draws, update noise) seeded from
-``train.seed`` and the rollout's (policy noise) from ``train.seed + 1``;
-both are checkpointed, and a resume on the other device type reseeds both
-from ``train.seed`` and the restored iteration.
+only at episode ends).  Randomness comes from two ``torch.Generator``: the
+learner's (replay draws, update noise) on the learner's device, seeded from
+``train.seed``, and the rollout's (policy noise) on the policy's device,
+from ``train.seed + 1``; both are checkpointed, and a resume whose saved
+states come from another device type reseeds both from ``train.seed`` and
+the restored iteration.  ``runtime.async_checkpoint`` snapshots the
+checkpoint to host memory and writes it on a thread
+(``utils.checkpoint``); the run waits for it before a stop returns and at
+the end of the schedule.  Under ``runtime.debug_nans`` an update or policy
+step that meets a non-finite value raises ``FloatingPointError`` naming it
+and the iteration.
 
 The envs: ``env_factory``, or ``envs.make_env`` for ``env.env_id`` over the
 base-env maker ``env_maker`` (``"module:function"``, e.g. ``gymnasium:make``;
@@ -29,25 +46,28 @@ or with ``env.async_envs`` in ``AsyncEnvFarm``'s spawned workers; eval
 always in process.
 
 Differences from the JAX orchestrator:
-- The rollout and eval policy computes in the config's compute dtype, through
-  the kernels on the card; JAX runs it in float32 (``dreamer.py:54-62``).
-  Under a float32 config, on the same weights and noise, the rollout ring
-  and the eval actions agree with JAX's to 1e-5
-  (``tests/test_torch_orchestrator_policy.py``).
-- Single process, one device.  The knobs of the mesh, the host-local actor,
-  the overlapped rollout and NaN debugging raise a ``ValueError`` naming the
-  ROADMAP item that will bring them; so does a compute dtype other than
-  bfloat16 on a CUDA device, whose kernels take bf16 only.
+- Without the host-local actor the rollout and eval policy computes in the
+  config's compute dtype, through the kernels on the card; JAX runs it in
+  float32 (``dreamer.py:54-62``).  Under a float32 config, on the same
+  weights and noise, the rollout ring and the eval actions agree with JAX's
+  to 1e-5 (``tests/test_torch_orchestrator_policy.py``); the host-local actor
+  acts in float32 as JAX's does (``tests/test_torch_actor_learner.py``).
+- Single process, one device.  ``runtime.mesh_shape`` raises a
+  ``ValueError`` naming the ROADMAP item that will bring it; so does a
+  compute dtype other than bfloat16 on a CUDA device, whose kernels take
+  bf16 only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -56,6 +76,7 @@ import torch
 from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import sample_gumbel
 from dreamer_tpu_torch.envs import AsyncEnvFarm, EnvFarm, make_env, missing_maker_message
+from dreamer_tpu_torch.orchestrator import broadcast
 from dreamer_tpu_torch.train.state import AdamState
 from dreamer_tpu_torch.train.step import Policy, Trainer, resolve_device
 from dreamer_tpu_torch.utils import CheckpointManager, MetricsLogger
@@ -69,19 +90,16 @@ RESEED_STRIDE = 1_000_003
 
 
 def refuse_unported(cfg: DreamerConfig, device: torch.device) -> None:
-    """Raise ``ValueError`` for a setting the port does not run yet, and for
+    """Raise ``ValueError`` for a setting the port does not run yet, for an
+    overlapped rollout without the host-local actor (as JAX does), and for
     a compute dtype the card's kernels do not take."""
     r = cfg.runtime
-    for on, knob, item in (
-            (r.mesh_shape is not None, "runtime.mesh_shape (the mesh and multi-process path)",
-             "Queue 1 item 7, parallel"),
-            (r.rollout_device == "cpu", "runtime.rollout_device='cpu' (the host-local actor)",
-             "Queue 1 item 4, the host-local actor and the overlapped rollout"),
-            (r.async_rollout, "runtime.async_rollout (rollout overlapped with the learner)",
-             "Queue 1 item 4, the host-local actor and the overlapped rollout"),
-            (r.debug_nans, "runtime.debug_nans", "Queue 1 item 5, NaN debugging")):
-        if on:
-            raise ValueError(f"{knob} is not ported yet: ROADMAP {item}")
+    if r.mesh_shape is not None:
+        raise ValueError("runtime.mesh_shape (the mesh and multi-process path) is not ported "
+                         "yet: ROADMAP Queue 1 item 7, parallel")
+    if r.async_rollout and r.rollout_device != "cpu":
+        raise ValueError("runtime.async_rollout requires runtime.rollout_device='cpu' (the "
+                         "actor must not read the learner's weights while they are updated)")
     if device.type == "cuda" and r.compute_dtype != "bfloat16":
         raise ValueError(
             f"runtime.compute_dtype={r.compute_dtype!r} on a CUDA device: the card's kernels "
@@ -140,11 +158,21 @@ class Dreamer:
         self.device = resolve_device(device)
         self.trainer = Trainer(cfg, device=self.device, seed=cfg.train.seed)
         self.state = self.trainer.init_state()
-        self.policy = Policy(cfg, nets=self.trainer.rssm.nets, actor=self.state.ac.actor)
+        # The host-local actor: a float32 policy of its own on the CPU, whose
+        # weights come from the learner's (_refresh_actor); the stamps of the
+        # learner's weights it holds, or None.
+        self.host_actor = cfg.runtime.rollout_device == "cpu"
+        self._actor_stamp = None
+        if self.host_actor:
+            self.policy = Policy(cfg.with_override("runtime.compute_dtype=float32"),
+                                 device="cpu", seed=cfg.train.seed)
+        else:
+            self.policy = Policy(cfg, nets=self.trainer.rssm.nets, actor=self.state.ac.actor)
         # Learner stream: replay draws and update noise.  Rollout stream: the
-        # policy's noise in rollout and eval.
+        # policy's noise in rollout and eval, on the policy's device.
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
-        self.rollout_rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed + 1)
+        self.rollout_rng = torch.Generator(device=self.policy.device).manual_seed(
+            cfg.train.seed + 1)
         self.buf = self.trainer.buffer.init_state(self.device)
         self.iteration = 0
         # Set by request_stop (e.g. from a SIGTERM handler): the train loop
@@ -167,16 +195,16 @@ class Dreamer:
         self._eval_seed = cfg.train.seed + 10_000
 
         # Persistent rollout state: (h, z) and the action to apply next on
-        # the device; the frame BEFORE that action and its episode-start
-        # flags on the host.
+        # the policy's device; the frame BEFORE that action and its
+        # episode-start flags on the host.
         self._h = self._z = self._action = None
         self._obs: Optional[np.ndarray] = None
         self._first: Optional[np.ndarray] = None
 
         self.metrics = MetricsLogger(cfg.runtime.log_dir, resuming=resuming)
         self._write_run_meta()
-        # runtime.async_checkpoint is accepted; the write is synchronous.
-        self.ckpt = CheckpointManager(cfg.runtime.checkpoint_dir)
+        self.ckpt = CheckpointManager(cfg.runtime.checkpoint_dir,
+                                      use_async=cfg.runtime.async_checkpoint)
         # The best eval so far; an improvement re-exports agent_best.
         self.best_eval = float("-inf")
         # Whether the restored checkpoint carried the replay ring (drives the
@@ -188,12 +216,15 @@ class Dreamer:
         self._nu_mtime: Optional[float] = None
 
     def close(self):
-        """Close the metrics file and the envs."""
-        self.metrics.close()
-        self.farm.close()
-        self.eval_env.close()
-        if self._eval_farm is not None:
-            self._eval_farm.close()
+        """Land the last checkpoint; close the metrics file and the envs."""
+        try:
+            self.ckpt.close()
+        finally:
+            self.metrics.close()
+            self.farm.close()
+            self.eval_env.close()
+            if self._eval_farm is not None:
+                self._eval_farm.close()
 
     # ------------------------------------------------------------------ #
     # Kickstart progress sidecar: a graceful stop mid-kickstart checkpoints
@@ -304,16 +335,52 @@ class Dreamer:
     # ------------------------------------------------------------------ #
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the learner's device."""
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _act(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the policy's device."""
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.policy.device)
 
     def _gumbel(self, n: int) -> torch.Tensor:
         c = self.cfg.wm
         return sample_gumbel((n, c.latent_rows, c.latent_classes), self.rollout_rng,
-                             self.device)
+                             self.policy.device)
 
     def _eps(self, n: int) -> torch.Tensor:
         return torch.randn(n, self.cfg.env.action_dim, generator=self.rollout_rng,
-                           device=self.device)
+                           device=self.policy.device)
+
+    def _learner_weights(self) -> List[torch.Tensor]:
+        """What the policy reads of the learner: every world-model parameter,
+        then the actor's (JAX's ``(wm.params, actor_params)``)."""
+        return [*self.state.wm.nets.parameters(), *self.state.ac.actor.parameters()]
+
+    def _refresh_actor(self) -> None:
+        """The host-local actor's weight broadcast (JAX's ``_policy_params``):
+        when the learner's weights have changed since the last one (their
+        storage or in-place version stamps, which an update, a load or a
+        move changes), copy them into the actor's.  A CPU learner's are
+        copied as they are, in float32; a card's go through the wire at
+        ``runtime.broadcast_dtype`` (``broadcast``).  Called before each
+        round and each eval, never inside one."""
+        if not self.host_actor:
+            return
+        learner = self._learner_weights()
+        stamp = tuple((p.data_ptr(), p._version) for p in learner)
+        if stamp == self._actor_stamp:
+            return
+        actor = [*self.policy.rssm.nets.parameters(), *self.policy.actor.parameters()]
+        if self.device.type == "cpu":
+            # Not .to("cpu"), which would alias the learner's tensors, which
+            # the next update rewrites in place (JAX copies, dreamer.py:337-345).
+            with torch.no_grad():
+                for dst, src in zip(actor, learner, strict=True):
+                    dst.copy_(src)
+        else:
+            wire = getattr(torch, self.cfg.runtime.broadcast_dtype)
+            broadcast.unflatten(broadcast.flatten(learner, wire), actor)
+        self._actor_stamp = stamp
 
     @staticmethod
     def _host_action(action) -> np.ndarray:
@@ -324,17 +391,21 @@ class Dreamer:
     def rollout_policy(self, random_policy: bool = False) -> Dict[str, float]:
         """Collect sequence_length transitions per env into the replay ring."""
         self._touch_heartbeat()
+        self._refresh_actor()
         chunks, metrics = self._collect_chunk(random_policy)
         self._write_chunk(chunks)
         return metrics
 
     def _collect_chunk(self, random_policy: bool):
-        """Step the env farm for one round; returns the host-side chunk."""
+        """Step the env farm for one round; returns the host-side chunk.
+        Touches the farm, the policy and the rollout stream only, never the
+        ring or the learner: with the host-local actor it makes no CUDA call,
+        so it may run on a thread beside the learner."""
         p, n = self.policy, self.farm.num_envs
         if self._obs is None:
             self._obs = self.farm.reset_all()
             self._first = np.ones(n, bool)
-            self._h, self._z = p.policy_reset(self._dev(self._obs), self._gumbel(n))
+            self._h, self._z = p.policy_reset(self._act(self._obs), self._gumbel(n))
             self._action = (np.asarray(self.farm.sample_actions(), np.float32)
                             if random_policy else
                             p.policy_act(self._h, self._z, self._eps(n)))
@@ -352,8 +423,8 @@ class Dreamer:
             # new frame is a reset frame re-encoded from h = 0), then the next
             # action; a random policy replaces that action.
             self._h, self._z, next_action = p.policy_act_observe(
-                self._h, self._z, self._dev(action_np), self._dev(obs_next),
-                self._dev(first_next), p.sample_noise(n, self.rollout_rng))
+                self._h, self._z, self._act(action_np), self._act(obs_next),
+                self._act(first_next), p.sample_noise(n, self.rollout_rng))
             self._action = (np.asarray(self.farm.sample_actions(), np.float32)
                             if random_policy else next_action)
             self._obs = obs_next
@@ -393,6 +464,7 @@ class Dreamer:
         return self._evaluate_batched(eval_episodes, max_steps)
 
     def _evaluate_batched(self, eval_episodes: int, max_steps: int) -> float:
+        self._refresh_actor()
         p = self.policy
         if self._eval_farm is None or self._eval_farm.num_envs != eval_episodes:
             if self._eval_farm is not None:
@@ -403,7 +475,7 @@ class Dreamer:
         farm.seed = self._eval_seed
         obs = farm.reset_all()
         self._eval_seed += eval_episodes
-        h, z = p.policy_reset(self._dev(obs), self._gumbel(eval_episodes))
+        h, z = p.policy_reset(self._act(obs), self._gumbel(eval_episodes))
         totals = np.zeros(eval_episodes)
         alive = np.ones(eval_episodes, bool)
         # Device rows <-> episodes: as episodes end, the live rows are
@@ -428,13 +500,13 @@ class Dreamer:
             if not alive.any():
                 break
             obs = obs_rows
-            z, h = p.policy_observe(z, h, action, self._dev(obs), self._gumbel(len(rows_ep)))
+            z, h = p.policy_observe(z, h, action, self._act(obs), self._gumbel(len(rows_ep)))
             n_alive = int(alive.sum())
             bucket = 1 << max(0, n_alive - 1).bit_length()
             if bucket < len(rows_ep):
                 keep = [r for r, ep in enumerate(rows_ep) if ep >= 0 and alive[ep]]
                 sel = np.asarray(keep + [keep[0]] * (bucket - len(keep)))
-                idx = torch.from_numpy(sel).to(self.device)
+                idx = self._act(sel)
                 h, z = h[idx], z[idx]
                 obs = obs[sel]
                 rows_ep = np.concatenate([rows_ep[keep], np.full(bucket - len(keep), -1)])
@@ -442,9 +514,10 @@ class Dreamer:
 
     def _run_episode(self, env, seed: int, max_steps: int, render: bool = False,
                      frames: Optional[List] = None) -> float:
+        self._refresh_actor()
         p = self.policy
         obs, _ = env.reset(seed=seed)
-        h, z = p.policy_reset(self._dev(np.asarray(obs, np.uint8)[None]), self._gumbel(1))
+        h, z = p.policy_reset(self._act(np.asarray(obs, np.uint8)[None]), self._gumbel(1))
         total = 0.0
         for _ in range(max_steps):
             if render or frames is not None:
@@ -457,7 +530,7 @@ class Dreamer:
             if term or trunc:
                 break
             z, h = p.policy_observe(z, h, action,
-                                    self._dev(np.asarray(obs_next, np.uint8)[None]),
+                                    self._act(np.asarray(obs_next, np.uint8)[None]),
                                     self._gumbel(1))
         return total
 
@@ -582,14 +655,15 @@ class Dreamer:
         return True
 
     def _restore_generators(self, tree) -> None:
-        """Continue both saved streams; when they come from the other device
-        type (a CPU generator's state is 5,056 bytes, a CUDA one's 16, and
-        neither takes the other's), reseed both from ``train.seed`` and the
-        restored iteration instead, as JAX's host-side keys would resume on
-        any platform."""
+        """Continue both saved streams; when one comes from another device
+        type than this run's stream (a CPU generator's state is 5,056 bytes,
+        a CUDA one's 16, and neither takes the other's), reseed both from
+        ``train.seed`` and the restored iteration instead, as JAX's host-side
+        keys would resume on any platform."""
         gens = (self.rng, self.rollout_rng)
         saved = (tree["rng"], tree["rollout_rng"])
-        if all(s.numel() == g.get_state().numel() for s, g in zip(saved, gens)):
+        crossed = [(s, g) for s, g in zip(saved, gens) if s.numel() != g.get_state().numel()]
+        if not crossed:
             for g, s in zip(gens, saved):
                 g.set_state(s)
             return
@@ -597,9 +671,10 @@ class Dreamer:
         base = self.cfg.train.seed + RESEED_STRIDE * (iteration + 1)
         self.rng.manual_seed(base)
         self.rollout_rng.manual_seed(base + 1)
-        other = "cuda" if self.device.type == "cpu" else "cpu"
+        state, gen = crossed[0]
+        other = "cuda" if gen.device.type == "cpu" else "cpu"
         print(f"resume: the checkpoint's generators are from a {other} device "
-              f"({saved[0].numel()}-byte state), this run is on {self.device}: both streams "
+              f"({state.numel()}-byte state), this run is on {gen.device}: both streams "
               f"reseeded from train.seed {self.cfg.train.seed} and iteration {iteration} "
               f"({base}, {base + 1})", flush=True)
 
@@ -611,9 +686,18 @@ class Dreamer:
     def _stop_and_checkpoint(self, log, message: str) -> float:
         log(message)
         self.save_checkpoint()
+        self.ckpt.wait_until_finished()
         self.metrics.save_npz()
         self.stopped = True
         return self.best_eval
+
+    @contextlib.contextmanager
+    def _at_iteration(self, iteration: int):
+        """Name the iteration in a ``runtime.debug_nans`` error raised inside."""
+        try:
+            yield
+        except FloatingPointError as e:
+            raise FloatingPointError(f"{e}, at iteration {iteration}") from e
 
     # ------------------------------------------------------------------ #
     # Master loop
@@ -661,9 +745,10 @@ class Dreamer:
                     return self._stop_and_checkpoint(
                         log, "Stop requested during kickstart; checkpointing and exiting "
                         "cleanly.")
-                self.rollout_policy(random_policy=True)
-                if self.buf.size >= cfg.sequence_length:
-                    self.state, _ = self.trainer.wm_step(self.state, self.buf, self.rng)
+                with self._at_iteration(0):
+                    self.rollout_policy(random_policy=True)
+                    if self.buf.size >= cfg.sequence_length:
+                        self.state, _ = self.trainer.wm_step(self.state, self.buf, self.rng)
             log("Kickstart done.")
             self._write_kickstart_progress(cfg.random_iterations)
             reward = self.evaluate_agent(cfg.eval_episodes)
@@ -679,6 +764,9 @@ class Dreamer:
         while self.buf.size < cfg.sequence_length:
             self.rollout_policy(random_policy=True)
 
+        # The overlapped rollout's one thread (runtime.async_rollout).
+        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="rollout") \
+            if self.cfg.runtime.async_rollout else None
         profiler = None
         try:
             while self.iteration < cfg.training_iterations:
@@ -697,17 +785,33 @@ class Dreamer:
                     self._maybe_update_nu(log)
                     nu = torch.tensor(self._nu, dtype=torch.float32, device=self.device)
                     phase_s["ac/nu"] = self._nu
-                roll_metrics = self.rollout_policy(random_policy=False)
-                phase_s["perf/rollout_s"] = time.perf_counter() - t_iter
-                t_learn = time.perf_counter()
-                self.state, step_metrics = self.trainer.train_iteration(
-                    self.state, self.buf, self.rng, nu)
+                with self._at_iteration(self.iteration + 1):
+                    if executor is not None:
+                        # The next round is collected on the thread with the
+                        # weights of before this update, while the learner
+                        # trains on the ring without it; then it is written.
+                        # A raise in the thread surfaces from result(); one in
+                        # the learner waits for the thread at the shutdown.
+                        self._refresh_actor()
+                        future = executor.submit(self._collect_chunk, False)
+                        self.state, step_metrics = self.trainer.train_iteration(
+                            self.state, self.buf, self.rng, nu)
+                        chunks, roll_metrics = future.result()
+                        self._write_chunk(chunks)
+                    else:
+                        roll_metrics = self.rollout_policy(random_policy=False)
+                        phase_s["perf/rollout_s"] = time.perf_counter() - t_iter
+                        t_learn = time.perf_counter()
+                        self.state, step_metrics = self.trainer.train_iteration(
+                            self.state, self.buf, self.rng, nu)
+                    step_metrics = metrics_to_host(step_metrics)
                 self.iteration += 1
-                step_metrics = metrics_to_host(step_metrics)
                 # The host read above waits for the learner, so the phase
-                # times cover its work.
+                # times cover its work; overlapped, only the whole
+                # iteration's rates mean anything.
                 dt = time.perf_counter() - t_iter
-                phase_s["perf/learner_s"] = time.perf_counter() - t_learn
+                if executor is None:
+                    phase_s["perf/learner_s"] = time.perf_counter() - t_learn
                 # One update = one optimizer step: a WM epoch steps one
                 # optimizer, an AC epoch two.
                 n_updates = cfg.wm_epochs + 2 * cfg.ac_epochs
@@ -733,6 +837,8 @@ class Dreamer:
                     log(f"iter {self.iteration}: eval reward {reward:.2f}, "
                         f"wm loss {float(step_metrics['wm/loss']):.3f}{ent_s}")
         finally:
+            if executor is not None:
+                executor.shutdown(wait=True)
             if profiler is not None:
                 self._stop_profile(profiler)
 
@@ -741,6 +847,7 @@ class Dreamer:
         self.metrics.log_eval(self.iteration, reward)
         self._maybe_save_best(reward)
         self.save_checkpoint()
+        self.ckpt.wait_until_finished()
         self.metrics.save_npz()
         return reward
 

@@ -14,7 +14,10 @@ Semantics, as in JAX:
   also on a skipped step;
 - a non-finite actor or critic loss skips both optimizer steps and the
   target update: every parameter and optimizer-state tensor takes
-  ``torch.where(finite, new, old)``, with no host sync.
+  ``torch.where(finite, new, old)``, with no host sync; under
+  ``runtime.debug_nans`` the update raises ``FloatingPointError`` first,
+  naming the actor or critic update and the loss term, gradient or updated
+  parameter (``train.debug``).
 
 The noise is an argument (``ACNoise``): the warm start's gumbels, the dream's
 normal eps and gumbels.  ``Trainer`` draws it from the caller's generator;
@@ -36,9 +39,15 @@ from dreamer_tpu_torch.core.dists import normal_entropy, tanh_normal_logprob
 from dreamer_tpu_torch.core.math import bucket_values, symlog, twohot, twohot_expectation
 from dreamer_tpu_torch.core.returns import lambda_returns, update_return_scale
 from dreamer_tpu_torch.rssm.rssm import RSSM
+from dreamer_tpu_torch.train.debug import check_finite
 from dreamer_tpu_torch.train.state import ACTrainState, AdamState
 
 Tensor = torch.Tensor
+
+# The loss terms ``runtime.debug_nans`` checks, by the update they belong to.
+DEBUG_LOSS_TERMS = (("actor update", ("ac/return_mean", "ac/return_scale", "ac/adv_std",
+                                      "ac/entropy", "ac/loss_actor")),
+                    ("critic update", ("ac/value_mean", "ac/loss_critic")))
 
 
 class ACNoise(NamedTuple):
@@ -176,12 +185,17 @@ class AgentTrainer:
         obs, actions = batch[0], batch[1]
         conts = batch[3] if len(batch) > 3 else None
         firsts = batch[4] if len(batch) > 4 else None
-        actor_p = list(state.actor.parameters())
-        critic_p = list(state.critic.parameters())
+        actor_n, actor_p = zip(*state.actor.named_parameters())
+        critic_n, critic_p = zip(*state.critic.named_parameters())
+        actor_p, critic_p = list(actor_p), list(critic_p)
         _, aux = self.ac_loss(state, rssm, obs, actions, noise, conts=conts, nu=nu,
                               firsts=firsts)
         s_new = aux.pop("_s_new")
         loss_actor, loss_critic = aux.pop("_loss_actor"), aux.pop("_loss_critic")
+        debug = self.cfg.runtime.debug_nans
+        if debug:
+            for where, keys in DEBUG_LOSS_TERMS:
+                check_finite(where, ((k, aux[k]) for k in keys))
         with record_function("ac_update/backward"):
             grads = torch.autograd.grad(loss_actor + loss_critic, actor_p + critic_p,
                                         allow_unused=True)
@@ -197,6 +211,13 @@ class AgentTrainer:
             tau = self.cfg.agent.target_tau
             target_p = list(state.target_critic.parameters())
             new_t = [(1.0 - tau) * t + tau * c for t, c in zip(target_p, new_c)]
+            if debug:
+                for where, names, g, p in (("actor update", actor_n, g_actor, new_a),
+                                           ("critic update", critic_n, g_critic, new_c)):
+                    check_finite(where, [*((f"the gradient of {k}", v) for k, v in zip(names, g)),
+                                         *((f"the updated {k}", v) for k, v in zip(names, p))])
+                check_finite("critic update", ((f"the updated target {k}", v)
+                                               for k, v in zip(critic_n, new_t)))
             aux["ac/grad_norm_actor"] = global_norm(g_actor)
             aux["ac/grad_norm_critic"] = global_norm(g_critic)
             aux["ac/update_skipped"] = (~finite).float()

@@ -25,6 +25,7 @@ from dreamer_tpu_torch.nets.wm_nets import WMNets
 from dreamer_tpu_torch.replay.buffer import ReplayBuffer, ReplayState
 from dreamer_tpu_torch.rssm.rssm import RSSM
 from dreamer_tpu_torch.train.agent import ACNoise, AgentTrainer
+from dreamer_tpu_torch.train.debug import check_finite
 from dreamer_tpu_torch.train.state import ACTrainState, AdamState, DreamerState, WMTrainState
 from dreamer_tpu_torch.train.world_model import make_wm_optimizer, wm_update
 
@@ -85,26 +86,35 @@ class Policy:
             sample_gumbel(shape, generator, self.device),
             torch.randn(n, self.cfg.env.action_dim, generator=generator, device=self.device))
 
+    def _check(self, **named: Tensor) -> None:
+        """Under ``runtime.debug_nans``, raise ``FloatingPointError`` naming
+        the first of ``named`` that is not finite."""
+        if self.cfg.runtime.debug_nans:
+            check_finite("policy step", named.items())
+
     @torch.no_grad()
     def policy_reset(self, obs_u8: Tensor, gumbel: Tensor) -> Tuple[Tensor, Tensor]:
         """Episode-start state: h = 0, z = encode(h=0, obs).  obs_u8 (N, H, W, 3)."""
         h = torch.zeros(obs_u8.shape[0], self.cfg.wm.hidden_dim, device=obs_u8.device)
-        return h, self.rssm.encode_initial(obs_u8, gumbel, h)
+        z = self.rssm.encode_initial(obs_u8, gumbel, h)
+        self._check(z=z)
+        return h, z
 
     @torch.no_grad()
     def policy_act(self, h: Tensor, z: Tensor, eps: Optional[Tensor] = None,
                    deterministic: bool = False) -> Tensor:
         """tanh(mu) if deterministic, else tanh(mu + sigma * eps)."""
         mu, sigma = self.actor(h, z)
-        if deterministic:
-            return torch.tanh(mu)
-        return torch.tanh(mu + sigma * eps)
+        action = torch.tanh(mu) if deterministic else torch.tanh(mu + sigma * eps)
+        self._check(action=action)
+        return action
 
     @torch.no_grad()
     def policy_observe(self, z: Tensor, h: Tensor, action: Tensor, obs_u8: Tensor,
                        gumbel: Tensor) -> Tuple[Tensor, Tensor]:
         """Posterior step after an env transition.  Returns (z', h')."""
         z2, h2, _ = self.rssm.observe_step(z, h, action, obs_u8, gumbel)
+        self._check(h=h2, z=z2)
         return z2, h2
 
     @torch.no_grad()
@@ -127,6 +137,7 @@ class Policy:
         d = done[:, None].float()
         h_next = (1.0 - d) * h_step + d * h0
         z_next = (1.0 - d) * z_step + d * z_reset
+        self._check(h=h_next, z=z_next)
         action = self.policy_act(h_next, z_next, noise.eps, deterministic)
         return h_next, z_next, action
 

@@ -17,7 +17,9 @@ Semantics, as in JAX (its module docstring gives the reference's quirks):
   terminal targets; ``wm.reset_on_episode_start`` derives the scan's resets
   from the continue flags;
 - a non-finite total skips the update: every parameter and optimizer-state
-  tensor takes ``torch.where(finite, new, old)``, with no host sync.
+  tensor takes ``torch.where(finite, new, old)``, with no host sync; under
+  ``runtime.debug_nans`` the update raises ``FloatingPointError`` first,
+  naming the loss term, gradient or updated parameter (``train.debug``).
 
 The noise is an argument: the posterior scan's gumbels (T, B, rows, classes).
 """
@@ -35,9 +37,14 @@ from dreamer_tpu_torch.core.dists import categorical_kl
 from dreamer_tpu_torch.core.math import bucket_values, twohot
 from dreamer_tpu_torch.rssm.rssm import RSSM
 from dreamer_tpu_torch.train.agent import AdamW, adamw_update, global_norm
+from dreamer_tpu_torch.train.debug import check_finite
 from dreamer_tpu_torch.train.state import WMTrainState
 
 Tensor = torch.Tensor
+
+# The loss terms ``runtime.debug_nans`` checks, the parts before the total.
+LOSS_TERMS = ("wm/obs_sse", "wm/reward_ce", "wm/cont_ce", "wm/kl_dyn", "wm/kl_rep",
+              "wm/loss_pred", "wm/loss")
 
 
 def make_wm_optimizer(cfg: DreamerConfig) -> AdamW:
@@ -150,14 +157,21 @@ def wm_update(rssm: RSSM, opt: AdamW, state: WMTrainState, batch: Sequence[Tenso
     ``state`` with the metrics."""
     obs, actions, rewards, conts = batch[:4]
     firsts = batch[4] if len(batch) > 4 else None
-    params = list(state.nets.parameters())
+    names, params = zip(*state.nets.named_parameters())
     loss, metrics = wm_loss(rssm, obs, actions, rewards, conts, gumbel, cfg, firsts=firsts)
+    debug = cfg.runtime.debug_nans
+    if debug:
+        check_finite("wm update", ((k, metrics[k]) for k in LOSS_TERMS))
     with record_function("wm_update/backward"):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     finite = torch.isfinite(loss.detach())
     with torch.no_grad(), record_function("wm_update/adamw"):
         new, opt_state = adamw_update(opt, [p.detach() for p in params], grads, state.opt)
+        if debug:
+            check_finite("wm update",
+                         [*((f"the gradient of {k}", g) for k, g in zip(names, grads)),
+                          *((f"the updated {k}", p) for k, p in zip(names, new))])
         metrics["wm/grad_norm"] = global_norm(grads)
         metrics["wm/update_skipped"] = (~finite).float()
         for dst, src in ((params, new), (state.opt.mu, opt_state.mu),

@@ -18,8 +18,9 @@ package's ``Dreamer``.
 - The rest of the lifecycle's bookkeeping as JAX's tests check it: the live
   ``nu_override``, a graceful stop (checkpoint, ``stopped``) and its resume,
   a fresh start deleting a stale ``kickstart.json``, batched eval
-  compacting episodes of mixed lengths, the knobs that are not ported and a
-  float32 config on a CUDA device (refused when ``Dreamer`` is built)."""
+  compacting episodes of mixed lengths, the knob that is not ported, an
+  overlapped rollout without the host-local actor and a float32 config on a
+  CUDA device (refused when ``Dreamer`` is built)."""
 
 import copy
 import json
@@ -250,12 +251,12 @@ def test_batched_eval_compacts_episodes_of_mixed_lengths(tmp_path):
     assert d._eval_seed == d.cfg.train.seed + 10_000 + 5
 
 
-# knob: (device, the refusal).  A float32 config is refused on a CUDA device
-# (its kernels take bf16), which the CPU test names without launching anything.
+# knob: (device, the refusal).  An overlapped rollout without the host-local
+# actor is refused as JAX refuses it.  A float32 config is refused on a CUDA
+# device (its kernels take bf16), which the CPU test names without launching
+# anything.
 REFUSED = {"runtime.mesh_shape=[1, 1]": ("cpu", "ROADMAP Queue 1 item"),
-           "runtime.async_rollout=true": ("cpu", "ROADMAP Queue 1 item"),
-           "runtime.rollout_device=cpu": ("cpu", "ROADMAP Queue 1 item"),
-           "runtime.debug_nans=true": ("cpu", "ROADMAP Queue 1 item"),
+           "runtime.async_rollout=true": ("cpu", "requires runtime.rollout_device='cpu'"),
            "runtime.compute_dtype=float32": ("cuda", "bfloat16 only")}
 
 
