@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Show that the kernels' checks fail faulty kernels.
 
-    python3 chip_mutants.py
+    python3 chip_mutants.py [NAME ...]
 
 Copies ``dreamer_tpu_torch`` into a temporary directory outside the checkout,
-writes faulty versions of a kernel source there, and runs the checks that
-``chip_smoke.py`` holds that kernel to on the right kernels and on each faulty
-one.
+writes faulty versions of a kernel source (or of a collective of the data
+axis) there, and runs the checks that ``chip_smoke.py`` holds it to on the
+right version and on each faulty one.  Names pick some of the faulty copies
+(default all); the right version runs the checks they need.
 
 The GRU kernels (``csrc/gru_cell.cu`` and ``csrc/gru_scan.cu`` on the shared
 core ``csrc/gru_core.cuh``), held by two checks at the flagship widths:
@@ -50,6 +51,16 @@ flagship widths, at the init's nearly flat prior and at a peaked one, on
 - ``im_a0_k``: actor Dense_0 loses the products of its last 128 rows of h
   (its h part's last K chunk);
 - ``im_unimix``: the sampler drops the 1% unimix.
+
+The data axis's collectives (``parallel/sharding.py``, ``train/``), held by
+``update``: ``chip_smoke.run_update_check``, one learner iteration of two
+ranks on the card (gloo) against one process's ``n_shards=2`` iteration
+from its crafted state, and a NaN on one rank:
+
+- ``dp_grad_mean``: each rank applies its own gradients, not their mean;
+- ``dp_free_bits``: each rank clamps its own KL mean to free bits;
+- ``dp_quantile``: the return scale reads this rank's returns alone;
+- ``dp_nan_flag``: each rank decides the NaN skip alone.
 
 Exits non-zero unless the right kernels pass every check and each faulty one
 fails at least one.  Needs a CUDA device and nvcc; the checkout is not
@@ -98,6 +109,23 @@ MUTANTS = {
                 ("imagine",)),
     "im_unimix": ("imagine.cu", "    const float p = d.keep * (e / s) + d.mix;\n",
                   "    const float p = e / s;\n", ("imagine",)),
+}
+# The data axis's collectives: (source under dreamer_tpu_torch/, the line to
+# change, its faulty version, the checks to run).
+DP_MUTANTS = {
+    "dp_grad_mean": ("parallel/sharding.py",
+                     "            out.append((flat[i:i + g.numel()] / self.world_size).view_as(g)"
+                     ".to(g.dtype))\n", "            out.append(g)\n", ("update",)),
+    "dp_free_bits": ("train/world_model.py",
+                     "        loss_dyn = torch.where(kl_dyn_mean >= fb, dkl_dyn, "
+                     "torch.full_like(dkl_dyn, fb))\n"
+                     "        loss_rep = torch.where(kl_rep_mean >= fb, dkl_rep, "
+                     "torch.full_like(dkl_rep, fb))\n",
+                     "        loss_dyn = torch.clamp(dkl_dyn, min=fb)\n"
+                     "        loss_rep = torch.clamp(dkl_rep, min=fb)\n", ("update",)),
+    "dp_quantile": ("train/agent.py", "R if plan is None else plan.gather(R)", "R", ("update",)),
+    "dp_nan_flag": ("parallel/sharding.py", "        return out, flat[-1] == 0\n",
+                    "        return out, finite\n", ("update",)),
 }
 
 SCAN_CHECK = r'''
@@ -210,8 +238,19 @@ for scale in (1.0, PEAKED_PRIOR):  # the init's nearly flat prior, and a peaked 
           f"failures {len(steps['failures'])} -> {'FAILS' if bad else 'passes'}", flush=True)
 print(f"mutants: {name} checks failed {failed}", flush=True)
 '''
+UPDATE_CHECK = r'''
+import sys
+sys.path.append(sys.argv[2])  # chip_smoke.py, after the package under test
+import chip_smoke
+
+name = sys.argv[1]
+failures = chip_smoke.run_update_check(chip_smoke.card_line())[2]
+print(f"mutants: {name} update: {'; '.join(failures) or 'held'} -> "
+      f"{'FAILS' if failures else 'passes'}", flush=True)
+print(f"mutants: {name} checks failed {len(failures)}", flush=True)
+'''
 CHECKS = {"scan": SCAN_CHECK, "cell": CELL_CHECK, "encoder": ENCODER_CHECK,
-          "imagine": IMAGINE_CHECK}
+          "imagine": IMAGINE_CHECK, "update": UPDATE_CHECK}
 
 
 def run(name: str, package_parent: Path, check: str) -> int:
@@ -237,14 +276,24 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout
     print(card.strip().splitlines()[0].strip(), flush=True)
-    right = {check: run(f"right ({check})", ROOT, check) for check in CHECKS}
+    every = {**MUTANTS, **DP_MUTANTS}
+    names = sys.argv[1:] or list(every)
+    unknown = [n for n in names if n not in every]
+    if unknown:
+        print(f"chip_mutants: no faulty copy named {unknown}; there are {list(every)}",
+              file=sys.stderr)
+        return 2
+    needed = [c for c in CHECKS if any(c in every[n][3] for n in names)]
+    right = {check: run(f"right ({check})", ROOT, check) for check in needed}
     failed = {"right": sum(right.values())}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (source, good, bad, checks) in MUTANTS.items():
+        for name in names:
+            source, good, bad, checks = every[name]
             parent = Path(tmp) / name
             shutil.copytree(ROOT / "dreamer_tpu_torch", parent / "dreamer_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
-            src = parent / "dreamer_tpu_torch" / "csrc" / source
+            src = parent / "dreamer_tpu_torch" / (source if name in DP_MUTANTS
+                                                  else f"csrc/{source}")
             text = src.read_text()
             if text.count(good) != 1:
                 raise RuntimeError(f"{name}: the line to change is not in {source} once")
@@ -253,9 +302,9 @@ def main() -> int:
             print(f"mutants: {name} failed " + ", ".join(f"{c} {v}" for c, v in by_check.items()),
                   flush=True)
             failed[name] = sum(by_check.values())
-    ok = failed["right"] == 0 and all(failed[n] > 0 for n in MUTANTS)
+    ok = failed["right"] == 0 and all(failed[n] > 0 for n in names)
     print(f"mutants: right kernels failed {failed['right']} checks; faulty kernels failed "
-          + ", ".join(f"{n} {failed[n]}" for n in MUTANTS)
+          + ", ".join(f"{n} {failed[n]}" for n in names)
           + f" -> {'held' if ok else 'NOT HELD'}", flush=True)
     return 0 if ok else 1
 

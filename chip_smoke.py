@@ -119,9 +119,32 @@ Phases, each printing its lines; any failure exits non-zero:
             GRU cell at 128 rows, the whole-scan GRU at T 1 over the update's
             rows, the imagination at B 128 x T 30), with its time, plain
             time, library time and bound.
-12. the "kernels" JSON line (each kernel's launches on the main path,
-            train_iteration, and by path; its numbers at the 64-env shapes
-            as *_at_64env_* keys), then the result line.
+12. data-parallel lifecycle (lifecycle_64env_2rank): cli.train.main on
+            configs/car_racer_64env.yaml with the actor-learner leg's cuts
+            and runtime.mesh_shape=[2,1], as two spawned ranks on this one
+            card over gloo (each on cuda:0 with --dist-backend gloo, 32 envs
+            in its AsyncEnvFarm, 64 of the batch's 128 rows, its 32 envs'
+            ring), with the 64-env leg's launch counters; 2 iterations, then
+            --resume to 3: each rank's learner launching all four kernels
+            and its host actor none, the ranks' parameters equal after each
+            run, the resume restoring iteration 2 on both, rank 0 alone
+            evaluating and writing metrics, every rank's checkpoint shard;
+            per rank perf/learner_s, perf/rollout_s and the seconds an
+            update spends in collectives, the global perf/env_steps_per_s;
+            then the update check (run_update_check, two more ranks): one
+            train_iteration of the two ranks against one process's
+            n_shards=2 iteration in bf16, gradients and return scale within
+            UPDATE_GRAD_RTOL and UPDATE_SCALE_RTOL from a state crafted so
+            that each of the four collectives matters (chip_mutants.py
+            shows that each left out fails it), and a NaN on one rank
+            skipping both; then each kernel held against its plain version
+            at each rank's operands.
+13. nccl:   the plan's collectives (all-reduce, all-gather, broadcast,
+            barrier) through NCCL in a one-rank group on this card.
+14. the "kernels" JSON line (each kernel's launches on the main path,
+            train_iteration, and by path, the 2-rank leg's per rank; its
+            numbers at the 64-env shapes as *_at_64env_* keys, at the 2-rank
+            leg's as *_at_2rank_*), then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
 """
@@ -1626,7 +1649,7 @@ def run_async_lifecycle(cfg, card: str, one_env: dict) -> dict:
     return launches
 
 
-def hold_at_path(captured: dict, card: str) -> dict:
+def hold_at_path(captured: dict, card: str, label: str = "lifecycle_64env") -> dict:
     """Each kernel held against its plain version at the operands the
     64-env learner gave it (``captured``: kernel -> {shape: operands}),
     with its time, its plain version's, one library call's and its bound.
@@ -1644,7 +1667,7 @@ def hold_at_path(captured: dict, card: str) -> dict:
         line = out.setdefault(name, {"max_abs_err": 0.0})
         line["max_abs_err"] = max(line["max_abs_err"], err)
         line[key] = t
-        print(f"lifecycle_64env: {name} at the path's {key}: kernel_ms={t['ms']:.4f} "
+        print(f"{label}: {name} at the path's {key}: kernel_ms={t['ms']:.4f} "
               f"plain_ms={t['plain_ms']:.4f} library_ms={fmt_ms(t['library_ms'])} "
               f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}){extra} on {card}", flush=True)
 
@@ -1653,7 +1676,7 @@ def hold_at_path(captured: dict, card: str) -> dict:
     for n, (obs, table, ws, bs) in sorted(captured["encoder"].items()):
         got = conv_cuda.encoder_forward(obs, ws, bs, table)
         err = max_err(got, conv_cuda.encoder_forward_plain(obs, ws, bs, table),
-                      conv_cuda.tolerance, f"lifecycle_64env: encoder at the path's {n} frames")
+                      conv_cuda.tolerance, f"{label}: encoder at the path's {n} frames")
         oihw = [w.permute(3, 2, 0, 1).contiguous() for w in ws]
         b16 = [b.to(torch.bfloat16) for b in bs]
 
@@ -1686,7 +1709,7 @@ def hold_at_path(captured: dict, card: str) -> dict:
     # The GRU cell at the posterior's and the warm start's rows.
     for n, (x, h, w) in sorted(captured["gru_cell"].items()):
         err = max_err(gru_cuda.gru_cell(x, h, *w), gru_cuda.gru_cell_plain(x, h, *w),
-                      gru_cuda.tolerance, f"lifecycle_64env: GRU cell at the path's {n} rows")
+                      gru_cuda.tolerance, f"{label}: GRU cell at the path's {n} rows")
         I, H = x.shape[1], h.shape[1]
         lib = [w[0][:, :I].contiguous(), w[1][:, :H].contiguous(), w[2].to(torch.bfloat16),
                w[3].to(torch.bfloat16)]
@@ -1703,9 +1726,9 @@ def hold_at_path(captured: dict, card: str) -> dict:
         got = gs.gru_scan(xs, h0, *ops)
         stats = gs.compare(got, gs.gru_scan_plain(xs, h0, *ops))
         if stats["failures"]:
-            fail(f"lifecycle_64env: gru_scan at T {T} x B {B}: {stats['failures']}")
+            fail(f"{label}: gru_scan at T {T} x B {B}: {stats['failures']}")
         err = max(stats[f"max_abs_err_{k}"] for k in gs.NAMES)
-        print("lifecycle_64env: gru_scan at the path's T " + f"{T} x B {B}: max |kernel - "
+        print(f"{label}: gru_scan at the path's T " + f"{T} x B {B}: max |kernel - "
               "plain| " + " ".join(f"{k} {stats[f'max_abs_err_{k}']:.3e}" for k in gs.NAMES)
               + f" (tol {gs.TOL} abs + rel)", flush=True)
         I, H = xs.shape[2], h0.shape[1]
@@ -1730,7 +1753,7 @@ def hold_at_path(captured: dict, card: str) -> dict:
             captured["imagine_rollout"].items()):
         got = ic.imagine_rollout(h0, z0, eps, gum, weights, unimix, min_std)
         stats = report_hold(ic.hold_rollout(got, eps, gum, weights, unimix, min_std),
-                            f"lifecycle_64env: the path's B={B} T={T} rollout")
+                            f"{label}: the path's B={B} T={T} rollout")
         err = max(stats[f"max_abs_err_{k}"] for k in ("h_next", "mu", "sigma", "action"))
         t = {"ms": cuda_ms(lambda: ic.imagine_rollout(h0, z0, eps, gum, weights, unimix,
                                                       min_std), 20),
@@ -2147,6 +2170,558 @@ def measure_host_actor_threads(cfg, card: str) -> None:
           f"intra-op threads (default {default} on {os.cpu_count()} cores): "
           + ", ".join(f"{k}: {v:.2f}" for k, v in times.items()) + f" on {card}", flush=True)
 
+
+# The data axis: car_racer_64env.yaml with LEG_64ENV's cuts as two ranks of
+# runtime.mesh_shape=[2,1] over gloo on the one card (NCCL refuses two ranks
+# on one device), each rank a spawned process on cuda:0 with 32 envs in its
+# AsyncEnvFarm and 64 of the batch's 128 rows, through cli.train.main with the
+# 64-env leg's launch counters; then --resume.  Then one learner iteration of
+# the two ranks against one process's n_shards=2 iteration (below).
+LEG_2RANK = (*LEG_64ENV, "runtime.mesh_shape=[2,1]")
+RANKS = 2
+# Seconds a rank may wait in a collective before the group gives up, and
+# that the leg waits for its ranks.
+RANK_COLLECTIVE_TIMEOUT_S = 180
+RANK_JOIN_TIMEOUT_S = 900
+# The update check: a ring of 60 steps for each of the 64 envs made from a
+# numpy seed (a window of 50 fits), the learner generator's seed, and the
+# crafted state under which each of the plan's four collectives changes the
+# update: free bits between the two shards' mean KL of the first world-model
+# batch (a quarter of the way from the lower), so that a per-rank clamp
+# drops one rank's KL gradient; the target critic's output layer scaled up,
+# so that the returns' P95 - P05 exceeds 1 and the return scale reads every
+# rank's returns; a NaN in every action of rank 1's envs, which must skip
+# the update on both ranks.
+UPDATE_RING_STEPS = 60
+UPDATE_SEED = 11
+UPDATE_CRITIC_SCALE = 3.0
+# The gradients each optimizer step of the two-rank iteration applies (after
+# the all-reduce) against the one-process n_shards=2 iteration's, per tensor
+# as the relative L2 distance |g - g_ref| / |g_ref|, the largest over the
+# iteration's steps and tensors (those whose norm is at least 1e-6 of their
+# step's), and the return scale, relative.  The two differ by bf16 rounding
+# only: a rank's weight gradients are bf16 products over its 64 rows,
+# rounded before the mean, where the one process rounds a product over 128
+# rows once; a bf16 rounding is 2^-9 relative, and the products' K grows
+# from 64 to 128.  Measured: 3.4e-3 (world model), 9.1e-5 (actor), 2.1e-3
+# (critic), the return scale equal.  Each collective left out moves one of
+# them ten times past its tolerance or more (chip_mutants.py's dp_* copies):
+# no gradient mean 1.09, free bits per rank 0.51, the return scale from one
+# rank's returns 1.2e-2 relative, the NaN skip per rank a changed weight.
+UPDATE_GRAD_RTOL = 5e-2
+UPDATE_SCALE_RTOL = 1e-3
+
+
+def _rank_update_check(rank: int) -> dict:
+    """One world-model update and one actor-critic update of this rank of
+    the two (the group joined), from the crafted state, against one
+    process's ``n_shards=2`` updates on rank 0; then the NaN case, a whole
+    ``train_iteration``.  Returns what the parent gates."""
+    import numpy as np
+    import torch
+
+    from dreamer_tpu_torch.config import DreamerConfig
+    from dreamer_tpu_torch.parallel import MeshPlan, make_mesh
+    from dreamer_tpu_torch.train import agent as agent_mod
+    from dreamer_tpu_torch.train import world_model as wm_mod
+    from dreamer_tpu_torch.train.step import Trainer
+
+    base = DreamerConfig.from_yaml(str(CONFIG_64ENV), LEG_2RANK)
+    E, B, H = base.env.num_envs, base.train.batch_size, base.train.horizon
+    plan = MeshPlan(make_mesh(RANKS, 1), "cuda:0")
+    rng = np.random.default_rng(UPDATE_SEED)
+    (h, w), A = base.wm.obs_size, base.env.action_dim
+    data = [rng.integers(0, 256, (E, UPDATE_RING_STEPS, h, w, 3), dtype=np.uint8),
+            rng.uniform(-1, 1, (E, UPDATE_RING_STEPS, A)).astype(np.float32),
+            rng.normal(0, 1, (E, UPDATE_RING_STEPS)).astype(np.float32),
+            (rng.uniform(size=(E, UPDATE_RING_STEPS)) > 0.1).astype(np.float32)]
+
+    def build(cfg, with_plan=True, nan=False):
+        p = plan if with_plan else None
+        tr = Trainer(cfg, device="cuda:0", seed=cfg.train.seed, plan=p, n_shards=RANKS)
+        st = tr.init_state()
+        with torch.no_grad():
+            for q in st.ac.target_critic.denses[-1].parameters():
+                q.mul_(UPDATE_CRITIC_SCALE)
+        block = p.env_block(E) if p is not None else slice(None)
+        cols = [d.copy() for d in data]
+        if nan:
+            cols[1][E // RANKS:] = np.nan
+        ring = tr.buffer.add_batch(tr.init_ring(), *(
+            torch.from_numpy(np.ascontiguousarray(c[block])).to("cuda:0") for c in cols))
+        return tr, st, ring
+
+    def flat(st):
+        return torch.cat([q.detach().reshape(-1).float() for m in (
+            st.wm.nets, st.ac.actor, st.ac.critic, st.ac.target_critic) for q in m.parameters()])
+
+    def gen():
+        return torch.Generator(device="cuda:0").manual_seed(UPDATE_SEED)
+
+    # Free bits between the shards' mean KL of the first world-model batch.
+    free_bits, kl = 0.0, (0.0, 0.0)
+    if rank == 0:
+        tr, _, ring = build(base, with_plan=False)
+        g = gen()
+        batch = tr._sample(ring, g, t_out=H)
+        gum = tr.sample_wm_noise(B, g)
+        kls = []
+        with torch.no_grad():
+            for rows in (slice(0, B // RANKS), slice(B // RANKS, B)):
+                _, m = wm_mod.wm_loss(tr.rssm, *(b[rows] for b in batch[:4]),
+                                      gum[:, rows].contiguous(), base)
+                kls.append(float(m["wm/kl_dyn"]))
+        kl = tuple(sorted(kls))
+        free_bits = kl[0] + 0.25 * (kl[1] - kl[0])
+        del tr, ring, batch, gum
+    free_bits = plan.broadcast(free_bits)
+    # One update of each kind: wm_step and ac_step at one epoch each.
+    cfg = base.with_override(f"wm.free_bits={free_bits!r}").with_override(
+        "train.wm_epochs=1").with_override("train.ac_epochs=1")
+
+    steps = []
+    real = agent_mod.adamw_update
+
+    def adamw(opt, params, grads, state):
+        steps.append([g.detach().float().clone() for g in grads])
+        return real(opt, params, grads, state)
+
+    def one_of_each(with_plan):
+        """One world-model update, then from a fresh state (the initial
+        world model) one actor-critic update: the gradients each optimizer
+        step applied (world model, actor, critic), the return scale after,
+        the WM loss and the updated weights' checksum."""
+        tr, st, ring = build(cfg, with_plan)
+        st, wm_metrics = tr.wm_step(st, ring, gen())
+        wm = flat(st)
+        del tr, st, ring
+        tr, st, ring = build(cfg, with_plan)
+        st, _ = tr.ac_step(st, ring, gen())
+        after = torch.cat([wm, flat(st)]).double()
+        got = (list(steps), float(st.ac.s_scale), float(wm_metrics["wm/loss"]),
+               (float(after.abs().sum()), float(after.square().sum())))
+        steps[:] = []
+        return got
+
+    agent_mod.adamw_update = wm_mod.adamw_update = adamw
+    try:
+        calls = plan.calls
+        got_steps, s_scale, wm_loss, checksum = one_of_each(True)
+        out = {"free_bits": free_bits, "kl": kl, "calls": plan.calls - calls,
+               "s_scale": s_scale, "wm/loss": wm_loss, "checksum": checksum}
+        tr, st, ring = build(cfg, nan=True)
+        before = flat(st)
+        st, m = tr.train_iteration(st, ring, gen())
+        steps[:] = []
+        out["nan_unchanged"] = bool(torch.equal(before, flat(st)))
+        out["nan_skipped"] = (float(m["wm/update_skipped"]), float(m["ac/update_skipped"]))
+        del tr, st, ring
+        if rank == 0:
+            ref_steps, ref_s_scale, ref_wm_loss, _ = one_of_each(False)
+            per_step = []
+            for got, ref in zip(got_steps, ref_steps, strict=True):
+                norms = [float(r.norm()) for r in ref]
+                top = max(norms)
+                per_step.append(max(float((g - r).norm()) / n
+                                    for g, r, n in zip(got, ref, norms) if n >= 1e-6 * top))
+            out.update(grad_gap=max(per_step), grad_gap_by_step=per_step,
+                       ref_s_scale=ref_s_scale, ref_wm_loss=ref_wm_loss,
+                       n_steps=len(got_steps))
+    finally:
+        agent_mod.adamw_update = wm_mod.adamw_update = real
+    return out
+
+
+def _rank_env(rank: int, port: int) -> None:
+    """torchrun's variables for rank ``rank`` of ``RANKS`` on this host."""
+    import os
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(RANKS),
+                      LOCAL_WORLD_SIZE=str(RANKS), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), DREAMER_DIST_TIMEOUT_S=str(RANK_COLLECTIVE_TIMEOUT_S))
+    # As torchrun would: the host's cores shared out, not each rank on all of them.
+    os.environ.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or RANKS) // RANKS)))
+
+
+def spawn_ranks(target, label: str, tmp: str):
+    """``target(rank, port, tmp)`` in ``RANKS`` spawned processes; each
+    writes ``tmp/rank{rank}.pt``, a dict with "error" if it raised.
+    Returns the dicts and the seconds the ranks took."""
+    import multiprocessing
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    start = time.perf_counter()
+    procs = [ctx.Process(target=target, args=(r, port, tmp), name=f"rank-{r}")
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(RANK_JOIN_TIMEOUT_S)
+    hung = [p.name for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    seconds = time.perf_counter() - start
+    if hung:
+        fail(f"{label}: {hung} did not finish within {RANK_JOIN_TIMEOUT_S} s")
+    results = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(RANKS)]
+    for res in results:
+        if "error" in res:
+            fail(f"{label}: rank {res['rank']} raised:\n{res['error']}")
+    return results, seconds
+
+
+def _rank_update_main(rank: int, port: int, tmp: str) -> None:
+    """One rank of ``run_update_check``: joins the gloo group on cuda:0 and
+    runs ``_rank_update_check``; writes ``tmp/rank{rank}.pt``."""
+    import traceback
+
+    _rank_env(rank, port)
+    import torch
+
+    from dreamer_tpu_torch.parallel import distributed
+
+    result = {"rank": rank}
+    try:
+        distributed.init_distributed("gloo", "cuda:0")
+        result["update"] = _rank_update_check(rank)
+    except BaseException:   # noqa: BLE001 - reported by the parent, which fails
+        result["error"] = traceback.format_exc()
+    finally:
+        torch.save(result, f"{tmp}/rank{rank}.pt")
+        distributed.shutdown()
+
+
+def run_update_check(card: str):
+    """One learner iteration of two ranks on the card (gloo, each cuda:0)
+    against one process's n_shards=2 iteration, from the crafted state of
+    ``_rank_update_check``; then the NaN case.  Prints the readings and
+    returns (rank 0's, rank 1's, the list of what failed)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results, seconds = spawn_ranks(_rank_update_main, "update check", tmp)
+    u0, u1 = (res["update"] for res in results)
+    failures = []
+    if u0["checksum"] != u1["checksum"]:
+        failures.append("after one iteration the ranks' parameters differ")
+    lo, hi = u0["kl"]
+    if not lo < u0["free_bits"] < (lo + hi) / 2:
+        failures.append(f"free bits {u0['free_bits']} not between the shards' mean KL {lo} "
+                        f"and {hi}")
+    scale_gap = abs(u0["s_scale"] - u0["ref_s_scale"]) / u0["ref_s_scale"]
+    if u0["grad_gap"] > UPDATE_GRAD_RTOL:
+        failures.append(f"gradients {u0['grad_gap']:.3e} from one process's")
+    if scale_gap > UPDATE_SCALE_RTOL:
+        failures.append(f"return scale {scale_gap:.3e} from one process's")
+    if not (u0["nan_unchanged"] and u1["nan_unchanged"]
+            and u0["nan_skipped"] == u1["nan_skipped"] == (1.0, 1.0)):
+        failures.append("a NaN on rank 1 did not skip the update on both ranks")
+    print(f"update check: one world-model and one actor-critic update of 2 ranks (gloo, one "
+          f"card) against one process's n_shards=2 updates in bf16 at {CONFIG_64ENV.name}'s "
+          f"widths (batch 128), free bits {u0['free_bits']:.4f} between the shards' mean KL {lo:.4f} and "
+          f"{hi:.4f}, the target critic's output x{UPDATE_CRITIC_SCALE}: gradients of "
+          f"{u0['n_steps']} optimizer steps (world model, actor, critic), largest relative L2 "
+          f"gap of a tensor "
+          f"{u0['grad_gap']:.3e} (by step {[f'{g:.2e}' for g in u0['grad_gap_by_step']]}; "
+          f"tolerance {UPDATE_GRAD_RTOL}); return scale {u0['s_scale']:.6g} against "
+          f"{u0['ref_s_scale']:.6g} (rel {scale_gap:.2e}, tolerance {UPDATE_SCALE_RTOL}); "
+          f"wm/loss {u0['wm/loss']:.6g} against {u0['ref_wm_loss']:.6g}; {u0['calls']} "
+          f"collectives; a NaN in rank 1's actions: skipped (wm, ac) {u0['nan_skipped']} and "
+          f"{u1['nan_skipped']}, weights unchanged {u0['nan_unchanged']} and "
+          f"{u1['nan_unchanged']}; {seconds:.2f} s with the spawn; "
+          f"{'; '.join(failures) or 'held'} on {card}", flush=True)
+    return u0, u1, failures
+
+
+def _rank_main(rank: int, port: int, tmp: str) -> None:
+    """One rank of ``run_two_rank_lifecycle``: torchrun's variables, the
+    launch counters and timers of the 64-env leg, then ``cli.train.main``
+    twice (train, then ``--resume``).  Writes its findings (and any error)
+    to ``tmp/rank{rank}.pt`` and the kernels' operands at its learner's
+    shapes to ``tmp/operands{rank}.pt``."""
+    import traceback
+
+    _rank_env(rank, port)
+    import functools
+    import types
+
+    import torch
+
+    from dreamer_tpu_torch.cli import train as cli
+    from dreamer_tpu_torch.config import DreamerConfig
+    from dreamer_tpu_torch.envs import EnvFarm, FakeEnv
+    from dreamer_tpu_torch.nets import gru, wm_nets
+    from dreamer_tpu_torch.ops import conv_cuda, gru_cuda, gru_scan_cuda, imagine_scan, observe_scan
+    from dreamer_tpu_torch.ops.gru_scan_cuda import gru_scan
+    from dreamer_tpu_torch.ops.imagine_cuda import imagine_rollout
+    from dreamer_tpu_torch.orchestrator import dreamer as orch
+    from dreamer_tpu_torch.parallel import distributed
+    from dreamer_tpu_torch.train import step as train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DreamerConfig.from_yaml(str(CONFIG_64ENV), LEG_2RANK)
+    rows = cfg.train.batch_size // RANKS
+    kernels = {"gru_cell": gru_cuda.gru_cell, "gru_scan": gru_scan,
+               "encoder": conv_cuda.encoder_forward, "imagine_rollout": imagine_rollout}
+    real = {"collect": orch.Dreamer._collect_chunk, "eval": orch.Dreamer._evaluate_batched,
+            "restore": orch.Dreamer.restore_latest, "close": orch.Dreamer.close,
+            "iteration": train_step.Trainer.train_iteration, "cell": gru.gru_cell,
+            "encode": wm_nets.encode, "imagine": imagine_scan.imagine_rollout}
+    log, captured, result = {}, {name: {} for name in kernels}, {"rank": rank}
+
+    def keep(name, key, operands):
+        if key not in captured[name]:
+            captured[name][key] = tuple(o.clone() if isinstance(o, torch.Tensor) else
+                                        [w.clone() for w in o] if isinstance(o, (list, tuple))
+                                        else o for o in operands)
+
+    def cell(x, h, *w):
+        if x.is_cuda and x.shape[0] == rows:
+            keep("gru_cell", rows, (x, h, list(w)))
+        return real["cell"](x, h, *w)
+
+    def encode(obs, table, operands, params):
+        if obs.is_cuda and obs.shape[0] >= rows:
+            keep("encoder", obs.shape[0], (obs, table, *operands))
+        return real["encode"](obs, table, operands, params)
+
+    def scan(xs, h0, *ops):
+        if xs.is_cuda:
+            keep("gru_scan", tuple(xs.shape[:2]), (xs, h0, list(ops)))
+        return gru_scan_cuda.gru_scan(xs, h0, *ops)
+
+    scan_module = types.SimpleNamespace(**{**vars(gru_scan_cuda), "gru_scan": scan})
+
+    def imagine(h0, z0, eps, gum, weights, unimix, min_std):
+        if h0.is_cuda:
+            keep("imagine_rollout", tuple(eps.shape[:2]),
+                 (h0, z0, eps, gum, list(weights), unimix, min_std))
+        return real["imagine"](h0, z0, eps, gum, weights, unimix, min_std)
+
+    def collect(self, random_policy):
+        before = {n: k.launches for n, k in kernels.items()}
+        start = time.perf_counter()
+        out = real["collect"](self, random_policy)
+        if not random_policy:
+            log["rollout_s"].append(time.perf_counter() - start)
+        log["envs"] = self.farm.num_envs
+        for n, k in kernels.items():
+            log["actor_launches"][n] += k.launches - before[n]
+        return out
+
+    def evaluate(self, episodes, max_steps):
+        if self._eval_farm is None:
+            self._eval_farm = EnvFarm(
+                [functools.partial(FakeEnv, obs_size=tuple(self.cfg.wm.obs_size), episode_len=n)
+                 for n in EVAL_64ENV_STEPS], seed=self._eval_seed)
+        log["evals"] += 1
+        before = {n: k.launches for n, k in kernels.items()}
+        out = real["eval"](self, episodes, max_steps)
+        for n, k in kernels.items():
+            log["actor_launches"][n] += k.launches - before[n]
+        return out
+
+    def iteration(self, state, ring, generator, nu=None):
+        torch.cuda.synchronize()
+        start, coll = time.perf_counter(), self.plan.seconds
+        out = real["iteration"](self, state, ring, generator, nu)
+        torch.cuda.synchronize()
+        log["learner_s"].append(time.perf_counter() - start)
+        updates = self.cfg.train.wm_epochs + self.cfg.train.ac_epochs
+        log["collective_s"].append((self.plan.seconds - coll) / updates)
+        return out
+
+    def restore(self):
+        found = real["restore"](self)
+        log["restored"] = {"found": found, "iteration": self.iteration, "size": self.buf.size}
+        return found
+
+    def close(self):
+        params = torch.cat([p.detach().reshape(-1).double() for m in (
+            self.state.wm.nets, self.state.ac.actor, self.state.ac.critic,
+            self.state.ac.target_critic) for p in m.parameters()])
+        log.update(checksum=(float(params.abs().sum()), float(params.square().sum())),
+                   iteration=self.iteration, metrics_enabled=self.metrics.enabled,
+                   csv_opened=self.metrics._csv_file is not None, ring=tuple(self.buf.obs.shape),
+                   global_envs=self.n_envs_global, plan_calls=self.plan.calls)
+        return real["close"](self)
+
+    patches = ((orch.Dreamer, "_collect_chunk", collect),
+               (orch.Dreamer, "_evaluate_batched", evaluate),
+               (orch.Dreamer, "restore_latest", restore), (orch.Dreamer, "close", close),
+               (train_step.Trainer, "train_iteration", iteration), (gru, "gru_cell", cell),
+               (wm_nets, "encode", encode), (observe_scan, "gru_scan_cuda", scan_module),
+               (imagine_scan, "imagine_rollout", imagine))
+    for owner, attr, fn in patches:
+        setattr(owner, attr, fn)
+    first, total = ITERATIONS_64ENV
+    argv = ["--config", str(CONFIG_64ENV), "--device", "cuda:0", "--dist-backend", "gloo",
+            "--overrides", *LEG_2RANK, f"runtime.checkpoint_dir={tmp}/models",
+            f"runtime.log_dir={tmp}/logs"]
+    try:
+        for run, extra in (("first", [f"train.training_iterations={first}"]),
+                           ("resumed", [f"train.training_iterations={total}"])):
+            log.clear()
+            log.update(rollout_s=[], learner_s=[], collective_s=[], evals=0,
+                       actor_launches=dict.fromkeys(kernels, 0))
+            for k in kernels.values():
+                k.launches = 0
+            start = time.perf_counter()
+            cli.main((["--resume"] if run == "resumed" else []) + argv + extra)
+            result[run] = {**log, "seconds": time.perf_counter() - start,
+                           "launches": {n: k.launches for n, k in kernels.items()},
+                           "backend": torch.distributed.get_backend()}
+        torch.save(captured, f"{tmp}/operands{rank}.pt")
+    except BaseException:   # noqa: BLE001 - reported by the parent, which fails
+        result["error"] = traceback.format_exc()
+    finally:
+        torch.save(result, f"{tmp}/rank{rank}.pt")
+        distributed.shutdown()
+
+
+def run_two_rank_lifecycle(card: str):
+    """The data axis on the card: ``_rank_main`` on two spawned ranks (each
+    on cuda:0, gloo), then their findings gated here: each rank's learner
+    launched all four kernels and its host actor none; the ranks' parameters
+    equal after each run; the resume restored iteration 2; rank 0 alone
+    wrote metrics and evaluated; every rank wrote its checkpoint shard.
+    Then ``run_update_check`` (two more ranks), and each kernel held against
+    its plain version at each rank's operands.  Returns each rank's
+    launches and rank 0's kernel numbers."""
+    import csv
+    import os
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results, seconds = spawn_ranks(_rank_main, "lifecycle_64env_2rank", tmp)
+        operands = [torch.load(f"{tmp}/operands{r}.pt", map_location="cuda:0",
+                               weights_only=False) for r in range(RANKS)]
+        rows = []
+        for name in ("metrics.leg1.csv", "metrics.csv"):
+            with open(f"{tmp}/logs/{name}") as f:
+                rows += [row for row in csv.DictReader(f) if row.get("wm/loss")]
+        shards = sorted(n for n in os.listdir(f"{tmp}/models") if ".rank" in n)
+
+    first, total = ITERATIONS_64ENV
+    for run in ("first", "resumed"):
+        a, b = (res[run] for res in results)
+        for res in results:
+            r = res[run]
+            if not all(r["launches"].values()) or any(r["actor_launches"].values()):
+                fail(f"lifecycle_64env_2rank ({run}): rank {res['rank']}'s learner launched "
+                     f"{r['launches']}, its host actor {r['actor_launches']}")
+            if r["envs"] != 32 or r["global_envs"] != 64 or r["ring"][0] != 32:
+                fail(f"lifecycle_64env_2rank ({run}): rank {res['rank']} stepped {r['envs']} "
+                     f"envs of {r['global_envs']} into a ring of {r['ring']}")
+            if r["backend"] != "gloo":
+                fail(f"lifecycle_64env_2rank: the ranks joined over {r['backend']}")
+        if a["checksum"] != b["checksum"]:
+            fail(f"lifecycle_64env_2rank ({run}): the ranks' parameters differ: checksums "
+                 f"{a['checksum']} and {b['checksum']}")
+        if not (a["metrics_enabled"] and a["csv_opened"]) or b["metrics_enabled"] \
+                or b["csv_opened"] or not a["evals"] or b["evals"]:
+            fail(f"lifecycle_64env_2rank ({run}): metrics written by rank 0 "
+                 f"{a['csv_opened']}, rank 1 {b['csv_opened']}; evals {a['evals']}, {b['evals']}")
+    for res in results:
+        got = res["resumed"].get("restored", {})
+        if not got.get("found") or got["iteration"] != first or res["resumed"]["iteration"] != total:
+            fail(f"lifecycle_64env_2rank: rank {res['rank']} resumed at {got} and ended at "
+                 f"{res['resumed']['iteration']}, expected {first} then {total}")
+    if [int(row["iteration"]) for row in rows] != list(range(1, total + 1)):
+        fail(f"lifecycle_64env_2rank: metrics rows {[row['iteration'] for row in rows]}")
+    if shards[-RANKS:] != [f"ckpt_{total}.rank{r}" for r in range(RANKS)]:
+        fail(f"lifecycle_64env_2rank: the checkpoint's shards are {shards}")
+
+    # The update: two ranks against one process, and the NaN skip.
+    failures = run_update_check(card)[2]
+    if failures:
+        fail(f"lifecycle_64env_2rank: the update check: {'; '.join(failures)}")
+
+    def median(values):
+        return statistics.median(values) if values else float("nan")
+
+    steps = [float(row["perf/env_steps_per_s"]) for row in rows]
+    print(f"lifecycle_64env_2rank: cli.train on {CONFIG_64ENV.name} with {' '.join(LEG_2RANK)} "
+          f"as 2 ranks on one card over gloo (each cuda:0, 32 envs in AsyncEnvFarm, 64 rows of "
+          f"the 128), then --resume: {seconds:.2f} s for the leg with its spawn; global median "
+          f"perf/env_steps_per_s {median(steps):.2f} (rank 0's rows); gloo took CUDA tensors "
+          f"for every collective of the plan in torch {torch.__version__} on {card}", flush=True)
+    for res in results:
+        for run in ("first", "resumed"):
+            r = res[run]
+            print(f"lifecycle_64env_2rank: rank {res['rank']} ({run}, {r['seconds']:.2f} s): "
+                  f"median perf/learner_s {median(r['learner_s']):.4f}, perf/rollout_s "
+                  f"{median(r['rollout_s']):.4f}, in collectives {median(r['collective_s']):.4f} "
+                  f"s an update; learner launches {r['launches']}, host actor "
+                  f"{r['actor_launches']}; evals {r['evals']}", flush=True)
+    for r, ops in enumerate(operands):
+        for name, need in (("encoder", 2), ("gru_cell", 1), ("gru_scan", 1),
+                           ("imagine_rollout", 1)):
+            if len(ops[name]) < need:
+                fail(f"lifecycle_64env_2rank: rank {r}'s learner gave {name} only {list(ops[name])}")
+    kernels_at = [hold_at_path(ops, card, f"lifecycle_64env_2rank rank {r}")
+                  for r, ops in enumerate(operands)]
+    launches = [{n: res["first"]["launches"][n] + res["resumed"]["launches"][n]
+                 for n in res["first"]["launches"]} for res in results]
+    return launches, kernels_at[0]
+
+
+def check_nccl_world_one(card: str) -> None:
+    """The plan's collectives through NCCL, the backend of one card a rank,
+    in a group of one rank on this card: all-reduce (``sum``,
+    ``reduce_update``, ``mean_metrics``), all-gather (``gather``),
+    ``broadcast`` and ``barrier``; each result the identity's."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from dreamer_tpu_torch.parallel import MeshPlan, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    dist.init_process_group("nccl", rank=0, world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        plan = MeshPlan(make_mesh(1, 1), "cuda:0")
+        x = torch.randn(5, 3, device="cuda:0")
+        grads, finite = plan.reduce_update([x, x[0]], torch.tensor(True, device="cuda:0"))
+        metrics = plan.mean_metrics({"a": x.sum(), "b": x[1]})
+        ok = (plan.active and dist.get_backend() == "nccl"
+              and torch.equal(plan.sum(x), x) and torch.equal(grads[0], x)
+              and torch.equal(grads[1], x[0]) and bool(finite)
+              and torch.equal(plan.gather(x), x) and torch.equal(metrics["b"], x[1])
+              and plan.broadcast(2.5) == 2.5)
+        plan.barrier()
+        if not ok or plan.calls != 6:
+            fail(f"nccl: the plan's collectives in a group of one ({plan.calls} calls)")
+        print(f"nccl: all-reduce, all-gather, broadcast and barrier through MeshPlan in a "
+              f"one-rank NCCL group, each the identity ({plan.calls} collectives, "
+              f"{plan.seconds * 1e3:.2f} ms) on {card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def kernel_faults():
     """Faulty kernels whose card-vs-CPU readings ``check_ac_update_vs_cpu``
     prints beside the right kernels' reading: (name, module, the name the
@@ -2335,6 +2910,22 @@ def main() -> int:
                 continue
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 k[f"{key}_at_64env_{shape.replace(' ', '_')}"] = tm[key]
+
+    # The data axis: car_racer_64env.yaml as two ranks on the card over gloo;
+    # each kernel launched by both ranks' learners and held at their operands.
+    on_2rank, at_2rank = run_two_rank_lifecycle(card)
+    for k in kernels:
+        for r, launches in enumerate(on_2rank):
+            if launches[k["name"]] == 0:
+                fail(f"the 2-rank lifecycle's rank {r} never launched {k['name']}")
+            k["launches_by_path"][f"lifecycle_64env_2rank_rank{r}"] = launches[k["name"]]
+        for shape, tm in at_2rank[k["name"]].items():
+            if shape == "max_abs_err":
+                k["max_abs_err_at_2rank"] = tm
+                continue
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                k[f"{key}_at_2rank_{shape.replace(' ', '_')}"] = tm[key]
+    check_nccl_world_one(card)
 
     # Times at the main path's shapes: the GRU cell at 50 rows, the whole-scan
     # GRU at T 1 x 1500, the encoder at 1500 frames, the imagination at B 50,

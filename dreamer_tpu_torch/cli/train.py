@@ -4,6 +4,16 @@
         --env-maker gymnasium:make \
         [--overrides train.training_iterations=100 ...] [--resume] [--device cpu]
 
+On several ranks (data parallelism, ``runtime.mesh_shape``'s data axis),
+through torchrun:
+
+    torchrun --nproc_per_node 2 -m dreamer_tpu_torch.cli.train --config ... \
+        --device cpu                      # two ranks on the CPU over gloo
+    torchrun --nproc_per_node 2 -m dreamer_tpu_torch.cli.train --config ...
+                                          # one card a rank, cuda:{LOCAL_RANK}, nccl
+    torchrun --nproc_per_node 2 -m dreamer_tpu_torch.cli.train --config ... \
+        --device cuda:0 --dist-backend gloo   # two ranks sharing one card
+
 Reads the nested YAML schema and the reference's flat one.  Runs on the card
 unless ``--device`` names another device, and fails without one.  Every
 ``env.env_id`` but ``fake`` needs ``--env-maker MODULE:FUNCTION``, a
@@ -15,6 +25,12 @@ checkpoints after the current iteration and exits 75 (EX_TEMPFAIL), once the
 checkpoint is on disk, so a supervisor resumes the run instead of reading it
 as finished.  ``runtime.debug_nans`` stops the run at the first non-finite
 value of an update or a policy step with ``FloatingPointError``.
+
+Under torchrun the process group is joined before anything touches CUDA
+(``parallel.init_distributed``; ``--dist-backend`` defaults to nccl on a
+CUDA device, gloo on the CPU), ``runtime.mesh_shape`` defaults to
+``[world_size, 1]``, the multi-rank run needs ``runtime.rollout_device=cpu``
+(the host-local actor), and only rank 0 prints and logs.
 """
 
 from __future__ import annotations
@@ -28,6 +44,7 @@ import torch
 from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.envs import missing_maker_message
 from dreamer_tpu_torch.orchestrator import Dreamer
+from dreamer_tpu_torch.parallel import distributed
 from dreamer_tpu_torch.train.step import resolve_device
 
 
@@ -45,7 +62,13 @@ def main(argv=None) -> float:
                         help="Builds the base env under the wrapper stack, with "
                              "gymnasium.make's signature (e.g. gymnasium:make); needed by "
                              "every env.env_id but 'fake'")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                        help="The process group's backend under torchrun; default nccl on a "
+                             "CUDA device, gloo on the CPU (ranks sharing a card name gloo)")
     args = parser.parse_args(argv)
+    # Before anything touches CUDA; a no-op for one process.
+    multiprocess = distributed.init_distributed(args.dist_backend, args.device)
+    primary = distributed.is_primary()
 
     cfg = DreamerConfig.from_yaml(args.config, overrides=args.overrides)
     if cfg.env.env_id != "fake" and args.env_maker is None:
@@ -62,10 +85,18 @@ def main(argv=None) -> float:
     if output_dir:
         cfg = cfg.with_override(f"runtime.log_dir={output_dir}")
 
-    device = resolve_device(args.device)
-    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}",
-          flush=True)
-    if cfg.runtime.debug_nans:
+    if multiprocess and not cfg.runtime.mesh_shape:
+        cfg = cfg.with_override(f"runtime.mesh_shape=[{distributed.world_size()}, 1]")
+
+    device = resolve_device(distributed.rank_device(args.device))
+    if primary:
+        print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}",
+              flush=True)
+        if multiprocess:
+            print(f"data parallel: {distributed.world_size()} ranks on "
+                  f"{distributed.hosts()} host(s), {torch.distributed.get_backend()}",
+                  flush=True)
+    if cfg.runtime.debug_nans and primary:
         # The port of jax_debug_nans: the first non-finite value of an update
         # or a policy step raises FloatingPointError naming it.
         print("debug_nans: every update and policy step stops at its first non-finite value",
@@ -73,11 +104,13 @@ def main(argv=None) -> float:
     dreamer = Dreamer(cfg, env_maker=args.env_maker, resuming=args.resume, device=device)
     previous = signal.signal(signal.SIGTERM, lambda *_: dreamer.request_stop())
     try:
-        final_reward = dreamer.train(resume=args.resume)
+        final_reward = dreamer.train(resume=args.resume, progress=primary)
         if dreamer.stopped:
-            print(f"Preempted at iter {dreamer.iteration} (checkpointed).", flush=True)
+            if primary:
+                print(f"Preempted at iter {dreamer.iteration} (checkpointed).", flush=True)
             raise SystemExit(75)
-        print(f"Final eval reward: {final_reward:.2f}", flush=True)
+        if primary:
+            print(f"Final eval reward: {final_reward:.2f}", flush=True)
         dreamer.metrics.save_npz()
         return final_reward
     finally:
@@ -86,4 +119,7 @@ def main(argv=None) -> float:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -229,6 +229,9 @@ class AsyncEnvFarm:
                                        f"within {self.timeout:g} s")
                 if proc.sentinel in wait([conn, proc.sentinel], timeout=left) \
                         and not conn.poll():
+                    # The sentinel can fire before the child is reapable, when
+                    # exitcode is still None: join it first.
+                    proc.join(timeout=5)
                     code = proc.exitcode
                     self._abort()
                     raise RuntimeError(f"env worker {i} (pid {proc.pid}) died with exit code "

@@ -45,6 +45,19 @@ base-env maker ``env_maker`` (``"module:function"``, e.g. ``gymnasium:make``;
 or with ``env.async_envs`` in ``AsyncEnvFarm``'s spawned workers; eval
 always in process.
 
+Data parallelism (``runtime.mesh_shape = [n, 1]``, JAX's multi-process
+path): one rank a process, joined by ``parallel.init_distributed`` (the CLI
+calls it).  ``env.num_envs`` is the envs of a host; the global farm is that
+times the hosts (``WORLD_SIZE / LOCAL_WORLD_SIZE``), and each rank steps its
+block of it with its own env seeds (``train.seed + rank * 100_003``) and
+rollout stream, and keeps their ring.  The learner is one update of the
+global batch on every rank (``Trainer`` with a ``MeshPlan``).  Rank 0
+decides a stop and runs every eval, and the others take its flag and
+reward; rank 0 alone writes metrics, ``run_meta.json``, ``kickstart.json``,
+``best.json`` and ``agent_best``, and the checkpoint's state, beside every
+rank's ring shard (``utils.checkpoint``).  More than one rank needs the
+host-local actor (``runtime.rollout_device='cpu'``), as in JAX.
+
 Differences from the JAX orchestrator:
 - Without the host-local actor the rollout and eval policy computes in the
   config's compute dtype, through the kernels on the card; JAX runs it in
@@ -52,10 +65,12 @@ Differences from the JAX orchestrator:
   weights and noise, the rollout ring and the eval actions agree with JAX's
   to 1e-5 (``tests/test_torch_orchestrator_policy.py``); the host-local actor
   acts in float32 as JAX's does (``tests/test_torch_actor_learner.py``).
-- Single process, one device.  ``runtime.mesh_shape`` raises a
+- One device a rank.  A model axis in ``runtime.mesh_shape`` raises a
   ``ValueError`` naming the ROADMAP item that will bring it; so does a
   compute dtype other than bfloat16 on a CUDA device, whose kernels take
   bf16 only.
+- The rollout stream of rank r is seeded ``train.seed + 1 + r * 100_003``
+  (JAX folds the process index into its key).
 """
 
 from __future__ import annotations
@@ -77,6 +92,7 @@ from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import sample_gumbel
 from dreamer_tpu_torch.envs import AsyncEnvFarm, EnvFarm, make_env, missing_maker_message
 from dreamer_tpu_torch.orchestrator import broadcast
+from dreamer_tpu_torch.parallel import MeshPlan, distributed, make_mesh, refuse_model_axis
 from dreamer_tpu_torch.train.state import AdamState
 from dreamer_tpu_torch.train.step import Policy, Trainer, resolve_device
 from dreamer_tpu_torch.utils import CheckpointManager, MetricsLogger
@@ -87,6 +103,8 @@ from dreamer_tpu_torch.utils.checkpoint import atomic_save, load
 # both streams from train.seed + RESEED_STRIDE * (iteration + 1), the rollout's
 # one above the learner's.
 RESEED_STRIDE = 1_000_003
+# Rank r's env seeds and rollout stream are offset by r times this.
+RANK_SEED_STRIDE = 100_003
 
 
 def refuse_unported(cfg: DreamerConfig, device: torch.device) -> None:
@@ -95,8 +113,7 @@ def refuse_unported(cfg: DreamerConfig, device: torch.device) -> None:
     a compute dtype the card's kernels do not take."""
     r = cfg.runtime
     if r.mesh_shape is not None:
-        raise ValueError("runtime.mesh_shape (the mesh and multi-process path) is not ported "
-                         "yet: ROADMAP Queue 1 item 7, parallel")
+        refuse_model_axis(int(r.mesh_shape[1]))
     if r.async_rollout and r.rollout_device != "cpu":
         raise ValueError("runtime.async_rollout requires runtime.rollout_device='cpu' (the "
                          "actor must not read the learner's weights while they are updated)")
@@ -156,7 +173,31 @@ class Dreamer:
             raise ValueError(f"Dreamer: {missing_maker_message(cfg.env.env_id)}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.trainer = Trainer(cfg, device=self.device, seed=cfg.train.seed)
+        # The data axis: this rank's plan, or None for one process.
+        world = distributed.world_size()
+        if world > 1 and not cfg.runtime.mesh_shape:
+            raise ValueError(f"a run of {world} ranks needs runtime.mesh_shape (the CLI "
+                             f"defaults it to [{world}, 1])")
+        if world > 1 and cfg.runtime.rollout_device != "cpu":
+            raise ValueError("a run of more than one rank needs runtime.rollout_device='cpu': "
+                             "the rollout and eval policy must be host-local, so that only "
+                             "the learner's updates are collective")
+        self.plan: Optional[MeshPlan] = None
+        self.rank = 0
+        n_envs = cfg.env.num_envs
+        learner_cfg = cfg
+        if cfg.runtime.mesh_shape:
+            self.plan = MeshPlan(make_mesh(*(int(n) for n in cfg.runtime.mesh_shape)),
+                                 self.device)
+            self.rank = self.plan.rank
+            # env.num_envs is a host's: the learner spans the global farm.
+            n_global = cfg.env.num_envs * distributed.hosts()
+            block = self.plan.env_block(n_global)
+            n_envs = block.stop - block.start
+            learner_cfg = cfg.with_override(f"env.num_envs={n_global}")
+        self.n_envs_global = learner_cfg.env.num_envs
+        self.trainer = Trainer(learner_cfg, device=self.device, seed=cfg.train.seed,
+                               plan=self.plan)
         self.state = self.trainer.init_state()
         # The host-local actor: a float32 policy of its own on the CPU, whose
         # weights come from the learner's (_refresh_actor); the stamps of the
@@ -171,9 +212,10 @@ class Dreamer:
         # Learner stream: replay draws and update noise.  Rollout stream: the
         # policy's noise in rollout and eval, on the policy's device.
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
+        self._rank_offset = self.rank * RANK_SEED_STRIDE
         self.rollout_rng = torch.Generator(device=self.policy.device).manual_seed(
-            cfg.train.seed + 1)
-        self.buf = self.trainer.buffer.init_state(self.device)
+            cfg.train.seed + 1 + self._rank_offset)
+        self.buf = self.trainer.init_ring()
         self.iteration = 0
         # Set by request_stop (e.g. from a SIGTERM handler): the train loop
         # finishes the current iteration, checkpoints and returns;
@@ -188,7 +230,8 @@ class Dreamer:
             action_repeat=cfg.env.action_repeat, crop_rows=cfg.env.crop_rows,
             max_episode_steps=cfg.env.max_episode_steps, base_make=env_maker)
         farm_cls = AsyncEnvFarm if cfg.env.async_envs else EnvFarm
-        self.farm = farm_cls([self._env_factory] * cfg.env.num_envs, seed=cfg.train.seed,
+        self.farm = farm_cls([self._env_factory] * n_envs,
+                             seed=cfg.train.seed + self._rank_offset,
                              next_step=cfg.env.next_step_autoreset)
         self.eval_env = self._env_factory()
         self._eval_farm: Optional[EnvFarm] = None
@@ -201,10 +244,12 @@ class Dreamer:
         self._obs: Optional[np.ndarray] = None
         self._first: Optional[np.ndarray] = None
 
-        self.metrics = MetricsLogger(cfg.runtime.log_dir, resuming=resuming)
-        self._write_run_meta()
+        self.metrics = MetricsLogger(cfg.runtime.log_dir, resuming=resuming,
+                                     enabled=self.rank == 0)
+        if self.rank == 0:
+            self._write_run_meta()
         self.ckpt = CheckpointManager(cfg.runtime.checkpoint_dir,
-                                      use_async=cfg.runtime.async_checkpoint)
+                                      use_async=cfg.runtime.async_checkpoint, plan=self.plan)
         # The best eval so far; an improvement re-exports agent_best.
         self.best_eval = float("-inf")
         # Whether the restored checkpoint carried the replay ring (drives the
@@ -240,7 +285,7 @@ class Dreamer:
         if not restored:
             # A fresh start's weights need the whole kickstart: a sidecar left
             # by an earlier run in a reused checkpoint_dir must not skip it.
-            if os.path.exists(path):
+            if self.rank == 0 and os.path.exists(path):
                 os.remove(path)
             return 0
         if os.path.exists(path):
@@ -249,6 +294,8 @@ class Dreamer:
         return self.cfg.train.random_iterations
 
     def _write_kickstart_progress(self, rounds_done: int):
+        if self.rank != 0:
+            return
         os.makedirs(self.cfg.runtime.checkpoint_dir, exist_ok=True)
         with open(self._kickstart_path(), "w") as f:
             json.dump({"rounds_done": rounds_done}, f)
@@ -269,7 +316,7 @@ class Dreamer:
             "time_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
             "device": self._device_name(),
             "torch": torch.__version__,
-            "processes": 1,
+            "processes": distributed.world_size(),
             "git_sha": None,
             "git_dirty": None,
         }
@@ -559,7 +606,7 @@ class Dreamer:
             "rng": self.rng.get_state(),
             "rollout_rng": self.rollout_rng.get_state(),
             "iteration": self.iteration,
-            "env_seed": self.farm.seed,
+            "env_seed": self.farm.seed - self._rank_offset,
             "eval_seed": self._eval_seed,
         }
         if self.cfg.runtime.checkpoint_replay:
@@ -570,7 +617,14 @@ class Dreamer:
         return tree
 
     def save_checkpoint(self):
-        return self.ckpt.save(self.iteration, self._checkpoint_tree())
+        tree = self._checkpoint_tree()
+        if self.plan is None:
+            return self.ckpt.save(self.iteration, tree)
+        # The state (alike on every rank, written by rank 0) and this rank's
+        # shard: its ring and its rollout stream.
+        shard = {k: tree.pop(k) for k in ("rollout_rng", "buffer") if k in tree}
+        tree["world_size"] = self.plan.world_size
+        return self.ckpt.save(self.iteration, tree, shard=shard)
 
     def _maybe_save_best(self, reward: float):
         """Export the weights and best.json whenever eval improves (outside
@@ -578,6 +632,8 @@ class Dreamer:
         if reward <= self.best_eval:
             return
         self.best_eval = reward
+        if self.rank != 0:
+            return
         base = self.cfg.runtime.checkpoint_dir
         os.makedirs(base, exist_ok=True)
         self.save_agent(os.path.join(base, "agent_best"))
@@ -642,7 +698,7 @@ class Dreamer:
         if self._ring_restored:
             self._load_ring(tree["buffer"])
         self.iteration = int(tree["iteration"])
-        self.farm.seed = int(tree["env_seed"])
+        self.farm.seed = int(tree["env_seed"]) + self._rank_offset
         self._eval_seed = int(tree["eval_seed"])
         # The recurrent rollout state is not checkpointed: the next round
         # starts new episodes.
@@ -670,7 +726,7 @@ class Dreamer:
         iteration = int(tree["iteration"])
         base = self.cfg.train.seed + RESEED_STRIDE * (iteration + 1)
         self.rng.manual_seed(base)
-        self.rollout_rng.manual_seed(base + 1)
+        self.rollout_rng.manual_seed(base + 1 + self._rank_offset)
         state, gen = crossed[0]
         other = "cuda" if gen.device.type == "cpu" else "cpu"
         print(f"resume: the checkpoint's generators are from a {other} device "
@@ -680,8 +736,28 @@ class Dreamer:
 
     def request_stop(self):
         """Ask the train loop to checkpoint and return after the current
-        iteration or kickstart round (signal-safe: only sets a flag)."""
+        iteration or kickstart round (signal-safe: only sets a flag).  Under a
+        mesh rank 0's flag decides for every rank."""
         self._stop_requested = True
+
+    def _should_stop(self) -> bool:
+        """Rank 0's stop flag, on every rank (the checkpoint is collective)."""
+        if self.plan is None:
+            return self._stop_requested
+        return bool(self.plan.broadcast(float(self.rank == 0 and self._stop_requested)))
+
+    def _eval_and_sync(self, episodes: int) -> float:
+        """An eval on rank 0 only, its mean reward on every rank (they take
+        the same best-checkpoint decisions).  The other ranks advance their
+        eval seed as the eval does, so every rank checkpoints the same."""
+        if self.plan is None or self.plan.world_size == 1:
+            return self.evaluate_agent(episodes)
+        if self.rank == 0:
+            reward = self.evaluate_agent(episodes)
+        else:
+            reward = 0.0
+            self._eval_seed += episodes
+        return self.plan.broadcast(reward)
 
     def _stop_and_checkpoint(self, log, message: str) -> float:
         log(message)
@@ -728,8 +804,7 @@ class Dreamer:
             if prime_rounds > 0:
                 # buf.size counts per-env ring positions: a round adds
                 # sequence_length of them.
-                target = min(prime_rounds * cfg.sequence_length,
-                             cfg.buffer_size // max(1, self.cfg.env.num_envs))
+                target = min(prime_rounds * cfg.sequence_length, self.trainer.buffer.capacity)
                 if self.buf.size < target:
                     log(f"Re-priming replay ring to {target} transitions "
                         "with random rollouts...")
@@ -740,7 +815,7 @@ class Dreamer:
             log(f"Starting Random Kickstart ({rounds_done}/{cfg.random_iterations} "
                 "rounds done).")
             for r in range(rounds_done, cfg.random_iterations):
-                if self._stop_requested:
+                if self._should_stop():
                     self._write_kickstart_progress(r)
                     return self._stop_and_checkpoint(
                         log, "Stop requested during kickstart; checkpointing and exiting "
@@ -751,7 +826,7 @@ class Dreamer:
                         self.state, _ = self.trainer.wm_step(self.state, self.buf, self.rng)
             log("Kickstart done.")
             self._write_kickstart_progress(cfg.random_iterations)
-            reward = self.evaluate_agent(cfg.eval_episodes)
+            reward = self._eval_and_sync(cfg.eval_episodes)
             self.metrics.log_eval(0, reward)
             self._maybe_save_best(reward)
             log(f"Initial eval reward: {reward:.2f}")
@@ -815,13 +890,13 @@ class Dreamer:
                 # One update = one optimizer step: a WM epoch steps one
                 # optimizer, an AC epoch two.
                 n_updates = cfg.wm_epochs + 2 * cfg.ac_epochs
-                n_steps = cfg.sequence_length * self.cfg.env.num_envs
+                n_steps = cfg.sequence_length * self.n_envs_global
                 phase_s["perf/env_steps_per_s"] = n_steps / dt
                 phase_s["perf/grad_updates_per_s"] = n_updates / dt
                 self.metrics.log_iteration(self.iteration,
                                            {**roll_metrics, **step_metrics, **phase_s})
 
-                if self._stop_requested:
+                if self._should_stop():
                     return self._stop_and_checkpoint(
                         log, f"Stop requested; checkpointing at iter {self.iteration} and "
                         "exiting cleanly.")
@@ -829,7 +904,7 @@ class Dreamer:
                     self.save_checkpoint()
                     self.metrics.save_npz()
                 if self.iteration % cfg.eval_every == 0:
-                    reward = self.evaluate_agent(cfg.eval_episodes)
+                    reward = self._eval_and_sync(cfg.eval_episodes)
                     self.metrics.log_eval(self.iteration, reward)
                     self._maybe_save_best(reward)
                     ent = step_metrics.get("ac/entropy")
@@ -843,7 +918,7 @@ class Dreamer:
                 self._stop_profile(profiler)
 
         log("Training Complete.")
-        reward = self.evaluate_agent(cfg.final_eval_episodes)
+        reward = self._eval_and_sync(cfg.final_eval_episodes)
         self.metrics.log_eval(self.iteration, reward)
         self._maybe_save_best(reward)
         self.save_checkpoint()

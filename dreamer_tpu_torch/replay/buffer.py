@@ -1,5 +1,5 @@
 """Device-resident circular replay buffer over an env axis
-(``dreamer_tpu/replay/buffer.py:57-230``, without the shard-local sampler).
+(``dreamer_tpu/replay/buffer.py:57-272``).
 
 Layout ``(num_envs, capacity_per_env, ...)``: each env writes its own
 temporally contiguous ring, all from one shared write head (the envs step in
@@ -13,6 +13,14 @@ The write head and fill level are host integers: the host drives every
 write, so it knows them without a device sync.  The three integer draws of a
 sample come from the caller's ``torch.Generator``; ``pick_indices`` takes them
 as arguments, so tests can inject JAX's.
+
+Shards (the data axis, JAX's ``_draw_indices(..., n_shards)`` and
+``sample_shard_local``, ``buffer.py:166-200, 232-272``): with ``n_shards``
+S, row b of a batch belongs to shard b // (B/S), which owns env block s, and
+draws its env within that block; ``n_shards=1`` draws exactly the unsharded
+stream.  A shard's ring (``init_state(n_shards=S)``) holds only its env
+block; ``sample(..., shard=s)`` draws the whole batch's indices, as every
+shard does, then keeps its own rows and rebases their envs into its block.
 """
 
 from __future__ import annotations
@@ -53,8 +61,11 @@ class ReplayBuffer:
         self.obs_size = obs_size
         self.store_firsts = store_firsts
 
-    def init_state(self, device=None) -> ReplayState:
-        e, c = self.num_envs, self.capacity
+    def init_state(self, device=None, n_shards: int = 1) -> ReplayState:
+        """An empty ring of all envs, or of one shard's env block."""
+        if self.num_envs % n_shards:
+            raise ValueError(f"{self.num_envs} envs do not divide into {n_shards} shards")
+        e, c = self.num_envs // n_shards, self.capacity
         f32 = dict(dtype=torch.float32, device=device)
         return ReplayState(
             obs=torch.zeros((e, c, *self.obs_size, 3), dtype=torch.uint8, device=device),
@@ -98,12 +109,23 @@ class ReplayBuffer:
         collide = (starts < state.next_idx) & (state.next_idx < starts + T)
         return env_idx, torch.where(collide & full, reroll, starts)
 
-    def draw_indices(self, state: ReplayState, batch_size: int,
-                     generator: torch.Generator) -> Tuple[Tensor, Tensor]:
+    def draw_indices(self, state: ReplayState, batch_size: int, generator: torch.Generator,
+                     n_shards: int = 1) -> Tuple[Tensor, Tensor]:
+        """The (env, start) of every row of a global batch: with ``n_shards``
+        S, row b draws its env within the block of shard b // (B/S)."""
         dev = state.obs.device
         hi = self.valid_starts(state)
-        env_idx = torch.randint(0, self.num_envs, (batch_size,), generator=generator,
-                                device=dev)
+        if n_shards > 1:
+            if batch_size % n_shards or self.num_envs % n_shards:
+                raise ValueError(f"batch {batch_size} and {self.num_envs} envs must divide "
+                                 f"into {n_shards} shards")
+            e_local = self.num_envs // n_shards
+            shard_of_row = torch.arange(batch_size, device=dev) // (batch_size // n_shards)
+            env_idx = shard_of_row * e_local + torch.randint(
+                0, e_local, (batch_size,), generator=generator, device=dev)
+        else:
+            env_idx = torch.randint(0, self.num_envs, (batch_size,), generator=generator,
+                                    device=dev)
         starts = torch.randint(0, hi, (batch_size,), generator=generator, device=dev)
         reroll = torch.randint(0, hi, (batch_size,), generator=generator, device=dev)
         return self.pick_indices(state, env_idx, starts, reroll)
@@ -128,7 +150,13 @@ class ReplayBuffer:
         return out
 
     def sample(self, state: ReplayState, batch_size: int, generator: torch.Generator,
-               t_out: Optional[int] = None, with_scalars: bool = True):
-        """A batch of ``batch_size`` windows (see ``gather``)."""
-        env_idx, starts = self.draw_indices(state, batch_size, generator)
+               t_out: Optional[int] = None, with_scalars: bool = True, n_shards: int = 1,
+               shard: Optional[int] = None):
+        """A batch of ``batch_size`` windows (see ``gather``).  With ``shard``
+        s, ``state`` is shard s's ring and the batch is its block of rows."""
+        env_idx, starts = self.draw_indices(state, batch_size, generator, n_shards)
+        if shard is not None:
+            per, e_local = batch_size // n_shards, self.num_envs // n_shards
+            rows = slice(shard * per, (shard + 1) * per)
+            env_idx, starts = env_idx[rows] - shard * e_local, starts[rows]
         return self.gather(state, env_idx, starts, t_out, with_scalars)

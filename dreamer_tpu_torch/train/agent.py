@@ -19,6 +19,12 @@ Semantics, as in JAX:
   naming the actor or critic update and the loss term, gradient or updated
   parameter (``train.debug``).
 
+Under a data-parallel ``plan`` (``parallel.MeshPlan``) the batch is this
+rank's block of rows: the return scale's P95 - P05 is taken over every
+rank's returns (``MeshPlan.gather``), the gradients are averaged and the
+update skipped on every rank where any rank's loss is not finite
+(``MeshPlan.reduce_update``), so the update is that of the whole batch.
+
 The noise is an argument (``ACNoise``): the warm start's gumbels, the dream's
 normal eps and gumbels.  ``Trainer`` draws it from the caller's generator;
 tests pass the noise JAX draws from its keys.  The phases of an update are
@@ -38,6 +44,7 @@ from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import normal_entropy, tanh_normal_logprob
 from dreamer_tpu_torch.core.math import bucket_values, symlog, twohot, twohot_expectation
 from dreamer_tpu_torch.core.returns import lambda_returns, update_return_scale
+from dreamer_tpu_torch.parallel.sharding import MeshPlan
 from dreamer_tpu_torch.rssm.rssm import RSSM
 from dreamer_tpu_torch.train.debug import check_finite
 from dreamer_tpu_torch.train.state import ACTrainState, AdamState
@@ -120,8 +127,8 @@ class AgentTrainer:
 
     def ac_loss(self, state: ACTrainState, rssm: RSSM, obs_u8: Tensor, actions: Tensor,
                 noise: ACNoise, conts: Optional[Tensor] = None,
-                nu: Optional[Tensor] = None, firsts: Optional[Tensor] = None
-                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+                nu: Optional[Tensor] = None, firsts: Optional[Tensor] = None,
+                plan: Optional[MeshPlan] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
         """(actor loss + critic loss, metrics) on one replay batch
         (``agent.py:104-190``).  obs_u8 (B, T', H, W, 3) uint8 and actions
         (B, T', A) with T' >= sequence_length // 2; ``conts`` feeds the warm
@@ -151,7 +158,8 @@ class AgentTrainer:
         advantage = R - v[:, :-1]
         logp = tanh_normal_logprob(traj.action.detach(), traj.mu, traj.sigma)
         entropy = normal_entropy(traj.sigma) if cfg.agent.analytic_entropy else -logp
-        s_new = update_return_scale(state.s_scale, R, cfg.agent.s_ema)
+        s_new = update_return_scale(state.s_scale, R if plan is None else plan.gather(R),
+                                    cfg.agent.s_ema)
         norm = torch.clamp(s_new, min=1.0).detach()
         nu_val = cfg.agent.nu if nu is None else nu
         loss_actor = torch.mean(-logp * (advantage / norm) - nu_val * entropy)
@@ -177,7 +185,7 @@ class AgentTrainer:
         return loss_actor + loss_critic, aux
 
     def ac_update(self, state: ACTrainState, rssm: RSSM, batch: Sequence[Tensor],
-                  noise: ACNoise, nu: Optional[Tensor] = None
+                  noise: ACNoise, nu: Optional[Tensor] = None, plan: Optional[MeshPlan] = None
                   ) -> Tuple[ACTrainState, Dict[str, Tensor]]:
         """One update (``agent.py:192-236``) on ``batch`` = (obs_u8, actions[,
         rewards, conts[, firsts]]).  Writes the new parameters and optimizer
@@ -189,7 +197,7 @@ class AgentTrainer:
         critic_n, critic_p = zip(*state.critic.named_parameters())
         actor_p, critic_p = list(actor_p), list(critic_p)
         _, aux = self.ac_loss(state, rssm, obs, actions, noise, conts=conts, nu=nu,
-                              firsts=firsts)
+                              firsts=firsts, plan=plan)
         s_new = aux.pop("_s_new")
         loss_actor, loss_critic = aux.pop("_loss_actor"), aux.pop("_loss_critic")
         debug = self.cfg.runtime.debug_nans
@@ -203,6 +211,9 @@ class AgentTrainer:
                  for p, g in zip(actor_p + critic_p, grads)]
         g_actor, g_critic = grads[:len(actor_p)], grads[len(actor_p):]
         finite = torch.isfinite(loss_actor.detach()) & torch.isfinite(loss_critic.detach())
+        if plan is not None:
+            grads, finite = plan.reduce_update(grads, finite)
+            g_actor, g_critic = grads[:len(actor_p)], grads[len(actor_p):]
 
         with torch.no_grad(), record_function("ac_update/adamw"):
             old_a, old_c = [p.detach() for p in actor_p], [p.detach() for p in critic_p]

@@ -9,6 +9,15 @@ the caller's ``torch.Generator`` (``sample_noise``, ``sample_wm_noise``,
 device the encoder, the GRU cell, the whole-scan GRU and the imagination run
 as the hand-written kernels of ``dreamer_tpu_torch.ops``; those take
 bfloat16, so the card needs ``runtime.compute_dtype: bfloat16``.
+
+Data parallelism (``runtime.mesh_shape``'s data axis): a ``Trainer`` built
+with a ``parallel.MeshPlan`` is one rank of S.  ``cfg.env.num_envs`` is the
+global env count; the rank's ring holds its env block (``init_ring``).
+Every rank draws the whole batch's indices and noise from a generator
+seeded alike on every rank, keeps its block of rows, and the plan's
+collectives make the ranks' updates one update of the whole batch.  A
+``Trainer(..., n_shards=S)`` without a plan is that update in one process:
+the same draws over the whole ring.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import sample_gumbel
 from dreamer_tpu_torch.nets.actor_critic import Actor, Critic
 from dreamer_tpu_torch.nets.wm_nets import WMNets
+from dreamer_tpu_torch.parallel.sharding import MeshPlan
 from dreamer_tpu_torch.replay.buffer import ReplayBuffer, ReplayState
 from dreamer_tpu_torch.rssm.rssm import RSSM
 from dreamer_tpu_torch.train.agent import ACNoise, AgentTrainer
@@ -146,11 +156,19 @@ class Trainer:
     """The learner: the world model (``self.rssm.nets``, which the state's
     ``wm.nets`` is) and the actor-critic, each updated in place."""
 
-    def __init__(self, cfg: DreamerConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: DreamerConfig, device=None, seed: int = 0,
+                 plan: Optional[MeshPlan] = None, n_shards: int = 1):
         """Build the world-model nets at ``cfg``'s widths with weights drawn
-        from ``seed`` (on the CPU) and move them to ``device``."""
+        from ``seed`` (on the CPU) and move them to ``device``.  ``plan``
+        makes this trainer one rank of its data axis; without one,
+        ``n_shards`` draws the batches as that many ranks would."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.plan = plan
+        self.n_shards = n_shards if plan is None else plan.n_data
+        # This rank's shard and rows of every batch (all of them without a plan).
+        self.shard = None if plan is None else plan.rank
+        self.rows = slice(None) if plan is None else plan.row_block(cfg.train.batch_size)
         self.dtype = getattr(torch, cfg.runtime.compute_dtype)
         self.seed = seed
         gen = torch.Generator().manual_seed(seed)
@@ -163,6 +181,19 @@ class Trainer:
                                    cfg.env.action_dim, cfg.wm.obs_size,
                                    num_envs=cfg.env.num_envs,
                                    store_firsts=cfg.env.next_step_autoreset)
+
+    def init_ring(self) -> ReplayState:
+        """An empty ring on the trainer's device: this rank's env block under
+        a plan, else every env."""
+        return self.buffer.init_state(self.device, 1 if self.plan is None else self.n_shards)
+
+    def _sample(self, ring: ReplayState, generator: torch.Generator, **kw):
+        """This rank's rows of a batch drawn as ``n_shards`` shards draw it."""
+        return self.buffer.sample(ring, self.cfg.train.batch_size, generator,
+                                  n_shards=self.n_shards, shard=self.shard, **kw)
+
+    def _global(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return metrics if self.plan is None else self.plan.mean_metrics(metrics)
 
     def init_state(self) -> DreamerState:
         """The whole training state (``step.py:85-104``): the world model with
@@ -207,19 +238,20 @@ class Trainer:
         """``train.wm_epochs`` world-model updates, each on a fresh sample of
         the first ``horizon`` steps of B windows with its own noise; the
         metrics are the last epoch's, with every epoch's loss as
-        ``wm/loss_epochs`` (``step.py:131-149``).  The indices and the noise
-        come from ``generator``, which must live on the trainer's device."""
+        ``wm/loss_epochs`` (``step.py:131-149``), global means under a plan.
+        The indices and the noise come from ``generator``, which must live on
+        the trainer's device."""
         cfg = self.cfg
         per_epoch = []
         for _ in range(cfg.train.wm_epochs):
-            batch = self.buffer.sample(ring, cfg.train.batch_size, generator,
-                                       t_out=cfg.train.horizon)
-            gumbel = self.sample_wm_noise(cfg.train.batch_size, generator)
-            _, metrics = wm_update(self.rssm, self.wm_opt, state.wm, batch, gumbel, cfg)
+            batch = self._sample(ring, generator, t_out=cfg.train.horizon)
+            gumbel = self.sample_wm_noise(cfg.train.batch_size, generator)[:, self.rows]
+            _, metrics = wm_update(self.rssm, self.wm_opt, state.wm, batch,
+                                   gumbel.contiguous(), cfg, plan=self.plan)
             per_epoch.append(metrics)
         metrics = dict(per_epoch[-1])
         metrics["wm/loss_epochs"] = torch.stack([m["wm/loss"] for m in per_epoch])
-        return state, metrics
+        return state, self._global(metrics)
 
     def ac_step(self, state: DreamerState, ring: ReplayState, generator: torch.Generator,
                 nu: Optional[torch.Tensor] = None
@@ -227,19 +259,21 @@ class Trainer:
         """``train.ac_epochs`` actor-critic updates, each on a fresh sample of
         the first ``sequence_length // 2`` steps of B windows (the warm
         start's), with the metrics averaged over the epochs as ``_ac_step``
-        does.  The indices and the noise come from ``generator``, which must
-        live on the trainer's device."""
+        does (global means under a plan).  The indices and the noise come from
+        ``generator``, which must live on the trainer's device."""
         cfg = self.cfg
         with_scalars = cfg.wm.reset_on_episode_start or cfg.env.next_step_autoreset
         per_epoch = []
         for _ in range(cfg.train.ac_epochs):
-            batch = self.buffer.sample(ring, cfg.train.batch_size, generator,
-                                       t_out=cfg.train.sequence_length // 2,
-                                       with_scalars=with_scalars)
+            batch = self._sample(ring, generator, t_out=cfg.train.sequence_length // 2,
+                                 with_scalars=with_scalars)
             noise = self.sample_ac_noise(cfg.train.batch_size, generator)
-            _, metrics = self.agent.ac_update(state.ac, self.rssm, batch, noise, nu)
+            noise = ACNoise(*(n[:, self.rows].contiguous() for n in noise))
+            _, metrics = self.agent.ac_update(state.ac, self.rssm, batch, noise, nu,
+                                              plan=self.plan)
             per_epoch.append(metrics)
-        return state, {k: torch.stack([m[k] for m in per_epoch]).mean() for k in per_epoch[0]}
+        return state, self._global(
+            {k: torch.stack([m[k] for m in per_epoch]).mean() for k in per_epoch[0]})
 
     def train_iteration(self, state: DreamerState, ring: ReplayState,
                         generator: torch.Generator, nu: Optional[torch.Tensor] = None

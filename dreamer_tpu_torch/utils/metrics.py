@@ -18,16 +18,23 @@ import numpy as np
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str, csv_name: str = "metrics.csv", resuming: bool = True):
-        """``resuming`` controls what happens to pre-existing metrics files in
+    def __init__(self, log_dir: str, csv_name: str = "metrics.csv", resuming: bool = True,
+                 enabled: bool = True):
+        """``enabled=False`` (every rank but rank 0 of a data-parallel run)
+        makes every file write a no-op; the metrics still accumulate in
+        memory.
+
+        ``resuming`` controls what happens to pre-existing metrics files in
         the log_dir: ``True`` (a supervised restart / --resume) rotates them
         to ``.legN`` names that ``tools/harvest_evidence.py`` concatenates
         back into one curve; ``False`` (a fresh run reusing a log_dir)
         archives them to ``.staleN`` names that harvest IGNORES — otherwise
         an unrelated previous run's legs would pollute the new run's curves
         and wall-time stats."""
+        self.enabled = enabled
         self.log_dir = os.path.abspath(log_dir)
-        os.makedirs(self.log_dir, exist_ok=True)
+        if enabled:
+            os.makedirs(self.log_dir, exist_ok=True)
         self.wm_losses: List[List[float]] = []   # per-iter list of per-epoch losses
         self.actor_losses: List[float] = []
         self.critic_losses: List[float] = []
@@ -37,9 +44,10 @@ class MetricsLogger:
         # csv/npz with "w" would destroy the previous legs' metrics.
         # Rotate existing files to leg-numbered (resume) or
         # stale-numbered (fresh start) names.
-        tag = "leg" if resuming else "stale"
-        self._rotate_existing(self._csv_path, tag)
-        self._rotate_existing(os.path.join(self.log_dir, "training_logs.npz"), tag)
+        if enabled:
+            tag = "leg" if resuming else "stale"
+            self._rotate_existing(self._csv_path, tag)
+            self._rotate_existing(os.path.join(self.log_dir, "training_logs.npz"), tag)
         self._csv_file = None
         self._csv_writer = None
         self._csv_fields: Optional[List[str]] = None
@@ -87,6 +95,8 @@ class MetricsLogger:
                          "wall_time": time.time() - self._t0})
 
     def _write_csv(self, row: Dict[str, Any]):
+        if not self.enabled:
+            return
         if self._csv_writer is None:
             self._csv_fields = sorted(row.keys())
             self._csv_file = open(self._csv_path, "w", newline="")
@@ -113,6 +123,8 @@ class MetricsLogger:
 
     def save_npz(self, path: Optional[str] = None):
         """Reference-compatible dump (same keys as training_logs.npz)."""
+        if not self.enabled:
+            return None
         path = path or os.path.join(self.log_dir, "training_logs.npz")
         wm = (np.concatenate([np.asarray(r, np.float32) for r in self.wm_losses])
               if self.wm_losses else np.zeros((0,), np.float32))

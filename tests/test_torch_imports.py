@@ -55,7 +55,8 @@ def test_no_forbidden_import(path):
 
 def test_importing_the_port_loads_none_of_them():
     code = ("import sys, dreamer_tpu_torch, dreamer_tpu_torch.train, dreamer_tpu_torch.bridge,"
-            " dreamer_tpu_torch.orchestrator, dreamer_tpu_torch.cli.train;"
+            " dreamer_tpu_torch.orchestrator, dreamer_tpu_torch.cli.train,"
+            " dreamer_tpu_torch.parallel;"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r});"
             "print(bad); sys.exit(1 if bad else 0)")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -65,7 +65,7 @@ def world():
 def scripted(trainer, draws):
     """Make ``trainer`` take JAX's draws, in order, instead of its generator's."""
     indices, wm_noise, ac_noise = (iter(d) for d in draws)
-    trainer.buffer.draw_indices = lambda ring, batch_size, generator: next(indices)
+    trainer.buffer.draw_indices = lambda ring, batch_size, generator, n_shards=1: next(indices)
     trainer.sample_wm_noise = lambda batch_size, generator: next(wm_noise)
     trainer.sample_ac_noise = lambda batch_size, generator: next(ac_noise)
 
