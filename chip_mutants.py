@@ -62,6 +62,18 @@ from its crafted state, and a NaN on one rank:
 - ``dp_quantile``: the return scale reads this rank's returns alone;
 - ``dp_nan_flag``: each rank decides the NaN skip alone.
 
+The model axis's collectives (``parallel/sharding.py``), held by
+``model_update``: ``chip_smoke.run_model_update_check``, one world-model and
+one actor-critic update of ``[1, 2]`` on the card (gloo) against one
+process's, from its crafted state:
+
+- ``mp_no_gather``: the weight gather left out (a rank writes its own block
+  of each sharded weight only);
+- ``mp_version``: the gather written through ``.data``, which moves no
+  version counter;
+- ``mp_world_returns``: the returns gathered over the world, not the data
+  group.
+
 Exits non-zero unless the right kernels pass every check and each faulty one
 fails at least one.  Needs a CUDA device and nvcc; the checkout is not
 modified.
@@ -126,6 +138,21 @@ DP_MUTANTS = {
     "dp_quantile": ("train/agent.py", "R if plan is None else plan.gather(R)", "R", ("update",)),
     "dp_nan_flag": ("parallel/sharding.py", "        return out, flat[-1] == 0\n",
                     "        return out, finite\n", ("update",)),
+}
+
+# The model axis's collectives (``parallel/sharding.py``), held by
+# ``model_update``: the same layout.
+MP_MUTANTS = {
+    "mp_no_gather": ("parallel/sharding.py",
+                     "            self._run(\"gather_weights\", dist.all_gather_into_tensor, every, "
+                     "mine,\n                      group=self.model_group)\n"
+                     "            ranks = range(self.n_model)\n",
+                     "            every, ranks = mine, [self.model_index]\n", ("model_update",)),
+    "mp_version": ("parallel/sharding.py", "                    dst = b.of(p, k)\n",
+                   "                    dst = b.of(p.data, k)\n", ("model_update",)),
+    "mp_world_returns": ("parallel/sharding.py",
+                         "        group, size = self.data_group, self.n_data\n",
+                         "        group, size = None, self.world_size\n", ("model_update",)),
 }
 
 SCAN_CHECK = r'''
@@ -249,8 +276,19 @@ print(f"mutants: {name} update: {'; '.join(failures) or 'held'} -> "
       f"{'FAILS' if failures else 'passes'}", flush=True)
 print(f"mutants: {name} checks failed {len(failures)}", flush=True)
 '''
+MODEL_UPDATE_CHECK = r'''
+import sys
+sys.path.append(sys.argv[2])  # chip_smoke.py, after the package under test
+import chip_smoke
+
+name = sys.argv[1]
+failures = chip_smoke.run_model_update_check(chip_smoke.card_line())[2]
+print(f"mutants: {name} model_update: {'; '.join(failures) or 'held'} -> "
+      f"{'FAILS' if failures else 'passes'}", flush=True)
+print(f"mutants: {name} checks failed {len(failures)}", flush=True)
+'''
 CHECKS = {"scan": SCAN_CHECK, "cell": CELL_CHECK, "encoder": ENCODER_CHECK,
-          "imagine": IMAGINE_CHECK, "update": UPDATE_CHECK}
+          "imagine": IMAGINE_CHECK, "update": UPDATE_CHECK, "model_update": MODEL_UPDATE_CHECK}
 
 
 def run(name: str, package_parent: Path, check: str) -> int:
@@ -276,7 +314,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout
     print(card.strip().splitlines()[0].strip(), flush=True)
-    every = {**MUTANTS, **DP_MUTANTS}
+    every = {**MUTANTS, **DP_MUTANTS, **MP_MUTANTS}
     names = sys.argv[1:] or list(every)
     unknown = [n for n in names if n not in every]
     if unknown:
@@ -292,7 +330,7 @@ def main() -> int:
             parent = Path(tmp) / name
             shutil.copytree(ROOT / "dreamer_tpu_torch", parent / "dreamer_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
-            src = parent / "dreamer_tpu_torch" / (source if name in DP_MUTANTS
+            src = parent / "dreamer_tpu_torch" / (source if name in {**DP_MUTANTS, **MP_MUTANTS}
                                                   else f"csrc/{source}")
             text = src.read_text()
             if text.count(good) != 1:

@@ -124,27 +124,47 @@ Phases, each printing its lines; any failure exits non-zero:
             and runtime.mesh_shape=[2,1], as two spawned ranks on this one
             card over gloo (each on cuda:0 with --dist-backend gloo, 32 envs
             in its AsyncEnvFarm, 64 of the batch's 128 rows, its 32 envs'
-            ring), with the 64-env leg's launch counters; 2 iterations, then
-            --resume to 3: each rank's learner launching all four kernels
-            and its host actor none, the ranks' parameters equal after each
-            run, the resume restoring iteration 2 on both, rank 0 alone
-            evaluating and writing metrics, every rank's checkpoint shard;
-            per rank perf/learner_s, perf/rollout_s and the seconds an
-            update spends in collectives, the global perf/env_steps_per_s;
-            then the update check (run_update_check, two more ranks): one
-            train_iteration of the two ranks against one process's
-            n_shards=2 iteration in bf16, gradients and return scale within
-            UPDATE_GRAD_RTOL and UPDATE_SCALE_RTOL from a state crafted so
-            that each of the four collectives matters (chip_mutants.py
-            shows that each left out fails it), and a NaN on one rank
-            skipping both; then each kernel held against its plain version
-            at each rank's operands.
-13. nccl:   the plan's collectives (all-reduce, all-gather, broadcast,
+            ring), with the 64-env leg's launch counters.  First, in the
+            same ranks, the update check (_rank_update_check, also
+            run_update_check on two ranks of its own): one WM and one AC
+            update of the two ranks against one process's n_shards=2 updates
+            in bf16, gradients and return scale within UPDATE_GRAD_RTOL and
+            UPDATE_SCALE_RTOL from a state crafted so that each of the four
+            collectives matters (chip_mutants.py shows that each left out
+            fails it), and a NaN on one rank skipping both.  Then 1
+            iteration, then --resume to 2: each rank's learner launching all
+            four kernels and its host actor none, the ranks' parameters
+            equal after each run, the resume restoring iteration 1 on both,
+            rank 0 alone evaluating and writing metrics, every rank's
+            checkpoint shard; per rank perf/learner_s, perf/rollout_s and
+            the seconds an update spends in collectives, the global
+            perf/env_steps_per_s; then each kernel held against its plain
+            version at rank 0's operands.
+13. model-axis lifecycle (lifecycle_64env_model2): the same at
+            runtime.mesh_shape=[1,2]: both ranks hold all 64 envs' ring and
+            take all 128 rows, rank 0 (on the host's cores but one) steps
+            the envs and broadcasts each round's rows, and each rank keeps
+            AdamW's moments of its half of the seven sharded weights.  First
+            the update check (_rank_model_update_check, also
+            run_model_update_check on two ranks of its own): one WM and one
+            AC update at batch 127 against one process's, every parameter
+            bit-equal across the ranks, gradients, updates and moments
+            within UPDATE_GRAD_RTOL, every changed weight's version moved,
+            the return scale within MODEL_UPDATE_SCALE_RTOL (chip_mutants.py's
+            mp_* copies each fail it).  Then 2 iterations, --resume to 3:
+            launches, the rings bit-equal after the first round, equal
+            parameters, finite unskipped updates, the resume's iteration and
+            ring, half of one process's sharded moments on each rank; per
+            rank the learner, rollout, gradient reduce, weight gather and
+            row broadcast seconds and the elements held; each kernel held at
+            rank 0's operands.
+14. nccl:   the plan's collectives (all-reduce, all-gather, broadcast,
             barrier) through NCCL in a one-rank group on this card.
-14. the "kernels" JSON line (each kernel's launches on the main path,
-            train_iteration, and by path, the 2-rank leg's per rank; its
+15. the "kernels" JSON line (each kernel's launches on the main path,
+            train_iteration, and by path, the multi-rank legs' per rank; its
             numbers at the 64-env shapes as *_at_64env_* keys, at the 2-rank
-            leg's as *_at_2rank_*), then the result line.
+            leg's as *_at_2rank_*, at the model-axis leg's as
+            *_at_model2_*), then the result line.
 
 It needs a CUDA device and imports nothing of JAX.
 """
@@ -2178,6 +2198,9 @@ def measure_host_actor_threads(cfg, card: str) -> None:
 # 64-env leg's launch counters; then --resume.  Then one learner iteration of
 # the two ranks against one process's n_shards=2 iteration (below).
 LEG_2RANK = (*LEG_64ENV, "runtime.mesh_shape=[2,1]")
+# 1 iteration, then --resume to 2 (the 64-env leg's depth is 2 then 3; cut
+# to make room for the model-axis leg).
+ITERATIONS_2RANK = (1, 2)
 RANKS = 2
 # Seconds a rank may wait in a collective before the group gives up, and
 # that the leg waits for its ranks.
@@ -2332,15 +2355,17 @@ def _rank_update_check(rank: int) -> dict:
     return out
 
 
-def _rank_env(rank: int, port: int) -> None:
-    """torchrun's variables for rank ``rank`` of ``RANKS`` on this host."""
+def _rank_env(rank: int, port: int, threads=None) -> None:
+    """torchrun's variables for rank ``rank`` of ``RANKS`` on this host, and
+    its intra-op threads (``threads``, default the host's cores shared out)."""
     import os
 
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(RANKS),
                       LOCAL_WORLD_SIZE=str(RANKS), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port), DREAMER_DIST_TIMEOUT_S=str(RANK_COLLECTIVE_TIMEOUT_S))
     # As torchrun would: the host's cores shared out, not each rank on all of them.
-    os.environ.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or RANKS) // RANKS)))
+    os.environ.setdefault("OMP_NUM_THREADS",
+                          str(threads or max(1, (os.cpu_count() or RANKS) // RANKS)))
 
 
 def spawn_ranks(target, label: str, tmp: str):
@@ -2408,7 +2433,13 @@ def run_update_check(card: str):
 
     with tempfile.TemporaryDirectory() as tmp:
         results, seconds = spawn_ranks(_rank_update_main, "update check", tmp)
-    u0, u1 = (res["update"] for res in results)
+    return report_update(results[0]["update"], results[1]["update"],
+                         f"{seconds:.2f} s with the spawn", card)
+
+
+def report_update(u0: dict, u1: dict, seconds: str, card: str):
+    """Gate and print the two ranks' ``_rank_update_check`` results; returns
+    (rank 0's, rank 1's, the list of what failed)."""
     failures = []
     if u0["checksum"] != u1["checksum"]:
         failures.append("after one iteration the ranks' parameters differ")
@@ -2436,21 +2467,27 @@ def run_update_check(card: str):
           f"wm/loss {u0['wm/loss']:.6g} against {u0['ref_wm_loss']:.6g}; {u0['calls']} "
           f"collectives; a NaN in rank 1's actions: skipped (wm, ac) {u0['nan_skipped']} and "
           f"{u1['nan_skipped']}, weights unchanged {u0['nan_unchanged']} and "
-          f"{u1['nan_unchanged']}; {seconds:.2f} s with the spawn; "
+          f"{u1['nan_unchanged']}; {seconds}; "
           f"{'; '.join(failures) or 'held'} on {card}", flush=True)
     return u0, u1, failures
 
 
-def _rank_main(rank: int, port: int, tmp: str) -> None:
-    """One rank of ``run_two_rank_lifecycle``: torchrun's variables, the
+def _rank_main(rank: int, port: int, tmp: str, leg=LEG_2RANK) -> None:
+    """One rank of ``run_two_rank_lifecycle`` (``leg`` LEG_2RANK) or of
+    ``run_model_axis_lifecycle`` (LEG_MODEL2): torchrun's variables, the
     launch counters and timers of the 64-env leg, then ``cli.train.main``
     twice (train, then ``--resume``).  Writes its findings (and any error)
     to ``tmp/rank{rank}.pt`` and the kernels' operands at its learner's
     shapes to ``tmp/operands{rank}.pt``."""
+    import os
     import traceback
 
-    _rank_env(rank, port)
+    # Under the model axis the group's first rank steps every env and runs
+    # the host actor alone: it takes the host's cores but one.
+    cores = os.cpu_count() or RANKS
+    _rank_env(rank, port, (cores - 1 if rank == 0 else 1) if leg == LEG_MODEL2 else None)
     import functools
+    import hashlib
     import types
 
     import torch
@@ -2468,11 +2505,12 @@ def _rank_main(rank: int, port: int, tmp: str) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = DreamerConfig.from_yaml(str(CONFIG_64ENV), LEG_2RANK)
-    rows = cfg.train.batch_size // RANKS
+    cfg = DreamerConfig.from_yaml(str(CONFIG_64ENV), leg)
+    rows = cfg.train.batch_size // cfg.runtime.mesh_shape[0]
     kernels = {"gru_cell": gru_cuda.gru_cell, "gru_scan": gru_scan,
                "encoder": conv_cuda.encoder_forward, "imagine_rollout": imagine_rollout}
     real = {"collect": orch.Dreamer._collect_chunk, "eval": orch.Dreamer._evaluate_batched,
+            "write": orch.Dreamer._write_chunk,
             "restore": orch.Dreamer.restore_latest, "close": orch.Dreamer.close,
             "iteration": train_step.Trainer.train_iteration, "cell": gru.gru_cell,
             "encode": wm_nets.encode, "imagine": imagine_scan.imagine_rollout}
@@ -2513,9 +2551,23 @@ def _rank_main(rank: int, port: int, tmp: str) -> None:
         out = real["collect"](self, random_policy)
         if not random_policy:
             log["rollout_s"].append(time.perf_counter() - start)
-        log["envs"] = self.farm.num_envs
+        log["envs"] = 0 if self.farm is None else self.farm.num_envs
         for n, k in kernels.items():
             log["actor_launches"][n] += k.launches - before[n]
+        return out
+
+    def write(self, chunks):
+        """The round's ring write (under a model axis its rows' broadcast
+        first); after the first round of a run, a digest of the ring."""
+        before = self.plan.seconds_by.get("broadcast_rows", 0.0)
+        out = real["write"](self, chunks)
+        log["rounds"] += 1
+        log["rows_s"].append(self.plan.seconds_by.get("broadcast_rows", 0.0) - before)
+        if log["rounds"] == 1:
+            digest = hashlib.sha256()
+            for name in ("obs", "action", "reward", "cont"):
+                digest.update(getattr(self.buf, name).cpu().numpy().tobytes())
+            log["first_ring"] = (digest.hexdigest(), self.buf.size, tuple(self.buf.obs.shape))
         return out
 
     def evaluate(self, episodes, max_steps):
@@ -2533,11 +2585,17 @@ def _rank_main(rank: int, port: int, tmp: str) -> None:
     def iteration(self, state, ring, generator, nu=None):
         torch.cuda.synchronize()
         start, coll = time.perf_counter(), self.plan.seconds
+        by = dict(self.plan.seconds_by)
         out = real["iteration"](self, state, ring, generator, nu)
         torch.cuda.synchronize()
         log["learner_s"].append(time.perf_counter() - start)
         updates = self.cfg.train.wm_epochs + self.cfg.train.ac_epochs
         log["collective_s"].append((self.plan.seconds - coll) / updates)
+        for name in ("reduce_update", "gather_weights"):   # an iteration's
+            log[f"{name}_s"].append(self.plan.seconds_by.get(name, 0.0) - by.get(name, 0.0))
+        # Whether the updates were skipped, and the WM loss (finite).
+        log["skipped"].append((float(out[1]["wm/update_skipped"]),
+                               float(out[1]["ac/update_skipped"]), float(out[1]["wm/loss"])))
         return out
 
     def restore(self):
@@ -2549,29 +2607,50 @@ def _rank_main(rank: int, port: int, tmp: str) -> None:
         params = torch.cat([p.detach().reshape(-1).double() for m in (
             self.state.wm.nets, self.state.ac.actor, self.state.ac.critic,
             self.state.ac.target_critic) for p in m.parameters()])
+        s = self.state
+        nets = (s.wm.nets, s.ac.actor, s.ac.critic)
+        opts = (s.wm.opt, s.ac.actor_opt, s.ac.critic_opt)
+        sharded = [p.numel() for o, m in zip(opts, nets)
+                   for p, b in zip(m.parameters(), o.blocks or []) if b is not None]
         log.update(checksum=(float(params.abs().sum()), float(params.square().sum())),
                    iteration=self.iteration, metrics_enabled=self.metrics.enabled,
                    csv_opened=self.metrics._csv_file is not None, ring=tuple(self.buf.obs.shape),
-                   global_envs=self.n_envs_global, plan_calls=self.plan.calls)
+                   global_envs=self.n_envs_global, plan_calls=self.plan.calls,
+                   farm=self.farm is not None, seconds_by=dict(self.plan.seconds_by),
+                   elements={"params": params.numel(),
+                             "moments": sum(t.numel() for o in opts for t in (*o.mu, *o.nu)),
+                             "moments_one_process": 2 * sum(p.numel() for m in nets
+                                                            for p in m.parameters()),
+                             "sharded_moments": sum(
+                                 t.numel() for o in opts
+                                 for t, b in zip((*o.mu, *o.nu), 2 * (o.blocks or []))
+                                 if b is not None),
+                             "sharded_moments_one_process": 2 * sum(sharded)})
         return real["close"](self)
 
     patches = ((orch.Dreamer, "_collect_chunk", collect),
-               (orch.Dreamer, "_evaluate_batched", evaluate),
+               (orch.Dreamer, "_evaluate_batched", evaluate), (orch.Dreamer, "_write_chunk", write),
                (orch.Dreamer, "restore_latest", restore), (orch.Dreamer, "close", close),
                (train_step.Trainer, "train_iteration", iteration), (gru, "gru_cell", cell),
                (wm_nets, "encode", encode), (observe_scan, "gru_scan_cuda", scan_module),
                (imagine_scan, "imagine_rollout", imagine))
-    for owner, attr, fn in patches:
-        setattr(owner, attr, fn)
-    first, total = ITERATIONS_64ENV
+    first, total = ITERATIONS_2RANK if leg == LEG_2RANK else ITERATIONS_64ENV
     argv = ["--config", str(CONFIG_64ENV), "--device", "cuda:0", "--dist-backend", "gloo",
-            "--overrides", *LEG_2RANK, f"runtime.checkpoint_dir={tmp}/models",
+            "--overrides", *leg, f"runtime.checkpoint_dir={tmp}/models",
             f"runtime.log_dir={tmp}/logs"]
     try:
+        # The leg's update check first, in these ranks, before the wrappers
+        # that count launches and keep the lifecycle's operands.
+        distributed.init_distributed("gloo", "cuda:0")
+        check = _rank_update_check if leg == LEG_2RANK else _rank_model_update_check
+        result["update"] = check(rank)
+        for owner, attr, fn in patches:
+            setattr(owner, attr, fn)
         for run, extra in (("first", [f"train.training_iterations={first}"]),
                            ("resumed", [f"train.training_iterations={total}"])):
             log.clear()
-            log.update(rollout_s=[], learner_s=[], collective_s=[], evals=0,
+            log.update(rollout_s=[], learner_s=[], collective_s=[], reduce_update_s=[],
+                       gather_weights_s=[], rows_s=[], skipped=[], rounds=0, evals=0,
                        actor_launches=dict.fromkeys(kernels, 0))
             for k in kernels.values():
                 k.launches = 0
@@ -2580,7 +2659,8 @@ def _rank_main(rank: int, port: int, tmp: str) -> None:
             result[run] = {**log, "seconds": time.perf_counter() - start,
                            "launches": {n: k.launches for n, k in kernels.items()},
                            "backend": torch.distributed.get_backend()}
-        torch.save(captured, f"{tmp}/operands{rank}.pt")
+        if rank == 0:
+            torch.save(captured, f"{tmp}/operands{rank}.pt")
     except BaseException:   # noqa: BLE001 - reported by the parent, which fails
         result["error"] = traceback.format_exc()
     finally:
@@ -2592,11 +2672,12 @@ def run_two_rank_lifecycle(card: str):
     """The data axis on the card: ``_rank_main`` on two spawned ranks (each
     on cuda:0, gloo), then their findings gated here: each rank's learner
     launched all four kernels and its host actor none; the ranks' parameters
-    equal after each run; the resume restored iteration 2; rank 0 alone
+    equal after each run; the resume restored iteration 1; rank 0 alone
     wrote metrics and evaluated; every rank wrote its checkpoint shard.
-    Then ``run_update_check`` (two more ranks), and each kernel held against
-    its plain version at each rank's operands.  Returns each rank's
-    launches and rank 0's kernel numbers."""
+    The same ranks ran the update check first (``_rank_update_check``, gated
+    by ``report_update``).  Then each kernel held against its plain version
+    at rank 0's operands (rank 1's have the same shapes).  Returns each
+    rank's launches and rank 0's kernel numbers."""
     import csv
     import os
     import tempfile
@@ -2605,15 +2686,15 @@ def run_two_rank_lifecycle(card: str):
 
     with tempfile.TemporaryDirectory() as tmp:
         results, seconds = spawn_ranks(_rank_main, "lifecycle_64env_2rank", tmp)
-        operands = [torch.load(f"{tmp}/operands{r}.pt", map_location="cuda:0",
-                               weights_only=False) for r in range(RANKS)]
+        operands = [torch.load(f"{tmp}/operands0.pt", map_location="cuda:0",
+                               weights_only=False)]
         rows = []
         for name in ("metrics.leg1.csv", "metrics.csv"):
             with open(f"{tmp}/logs/{name}") as f:
                 rows += [row for row in csv.DictReader(f) if row.get("wm/loss")]
         shards = sorted(n for n in os.listdir(f"{tmp}/models") if ".rank" in n)
 
-    first, total = ITERATIONS_64ENV
+    first, total = ITERATIONS_2RANK
     for run in ("first", "resumed"):
         a, b = (res[run] for res in results)
         for res in results:
@@ -2643,8 +2724,10 @@ def run_two_rank_lifecycle(card: str):
     if shards[-RANKS:] != [f"ckpt_{total}.rank{r}" for r in range(RANKS)]:
         fail(f"lifecycle_64env_2rank: the checkpoint's shards are {shards}")
 
-    # The update: two ranks against one process, and the NaN skip.
-    failures = run_update_check(card)[2]
+    # The update: two ranks against one process, and the NaN skip, run in
+    # the leg's ranks before the lifecycle.
+    failures = report_update(results[0]["update"], results[1]["update"],
+                             "in the leg's ranks, before the lifecycle", card)[2]
     if failures:
         fail(f"lifecycle_64env_2rank: the update check: {'; '.join(failures)}")
 
@@ -2675,6 +2758,358 @@ def run_two_rank_lifecycle(card: str):
     launches = [{n: res["first"]["launches"][n] + res["resumed"]["launches"][n]
                  for n in res["first"]["launches"]} for res in results]
     return launches, kernels_at[0]
+
+
+# The model axis: car_racer_64env.yaml with LEG_64ENV's cuts at
+# runtime.mesh_shape=[1,2], as two ranks on the one card over gloo through
+# cli.train.main, then --resume.  Both ranks hold all 64 envs' ring and take
+# all 128 rows of every batch; rank 0 steps the envs in its AsyncEnvFarm and
+# broadcasts each round's rows to rank 1, which builds no farm; each rank
+# keeps AdamW's moments of its half of the seven sharded weights' columns,
+# updates that half and gathers the other.
+LEG_MODEL2 = (*LEG_64ENV, "runtime.mesh_shape=[1,2]")
+# The seven weights JAX shards over a model axis of 2 at car_racer_64env.yaml
+# (tests/test_torch_model_axis.py holds the choice to JAX's): their elements.
+MODEL2_SHARDED_WEIGHTS = 9_347_800
+# The update check at [1,2]: one world-model update and one actor-critic
+# update (one epoch each) of two ranks from the crafted state of the 2-rank
+# check (the ring from UPDATE_SEED, the target critic's output x3), each
+# against the same update in one process (n_shards=1) on the same rank.  A
+# batch of 127 rows, not the published 128: with 128 x 30 = 3,840 returns,
+# 5 % of them is a whole number, and then the quantiles of every return
+# repeated m times equal the returns' own exactly (a gather over the world
+# would be harmless); at 127 x 30 = 3,810 they differ.  Gated: every
+# parameter bit-equal across the ranks (the replicated ones, and the sharded
+# ones after the gather); the applied gradients, each parameter's update
+# (new - old) and each moment (a rank's block against the same block) within
+# UPDATE_GRAD_RTOL (relative L2) of one process's; every parameter whose
+# value changed has a moved version counter (what the kernel layouts and the
+# host actor's refresh read); the return scale within MODEL_UPDATE_SCALE_RTOL
+# (a rank computes the same returns from the same rows as one process, so
+# only a wrong gather of them moves it).
+MODEL_UPDATE_BATCH = 127
+MODEL_UPDATE_SCALE_RTOL = 1e-6
+
+
+def _rank_model_update_check(rank: int) -> dict:
+    """One world-model and one actor-critic update of this rank of the two
+    at [1, 2] (the group joined), each from a fresh crafted state, then the
+    same two updates in one process on this rank.  Returns the gaps and the
+    digests the parent gates."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from dreamer_tpu_torch.config import DreamerConfig
+    from dreamer_tpu_torch.parallel import MeshPlan, make_mesh
+    from dreamer_tpu_torch.train import agent as agent_mod
+    from dreamer_tpu_torch.train import world_model as wm_mod
+    from dreamer_tpu_torch.train.step import Trainer
+
+    cfg = DreamerConfig.from_yaml(str(CONFIG_64ENV), (
+        *LEG_MODEL2, "train.wm_epochs=1", "train.ac_epochs=1",
+        f"train.batch_size={MODEL_UPDATE_BATCH}"))
+    E = cfg.env.num_envs
+    plan = MeshPlan(make_mesh(1, 2), "cuda:0")
+    rng = np.random.default_rng(UPDATE_SEED)
+    (h, w), A = cfg.wm.obs_size, cfg.env.action_dim
+    data = [rng.integers(0, 256, (E, UPDATE_RING_STEPS, h, w, 3), dtype=np.uint8),
+            rng.uniform(-1, 1, (E, UPDATE_RING_STEPS, A)).astype(np.float32),
+            rng.normal(0, 1, (E, UPDATE_RING_STEPS)).astype(np.float32),
+            (rng.uniform(size=(E, UPDATE_RING_STEPS)) > 0.1).astype(np.float32)]
+    steps = []
+    real = agent_mod.adamw_update
+
+    def adamw(opt, params, grads, state):
+        steps.append([g.detach().float().clone() for g in grads])
+        return real(opt, params, grads, state)
+
+    def named(st):
+        return [(f"{m}.{k}", p) for m, mod in (
+            ("wm", st.wm.nets), ("actor", st.ac.actor), ("critic", st.ac.critic),
+            ("target", st.ac.target_critic)) for k, p in mod.named_parameters()]
+
+    def moments(st):
+        out = []
+        for m, opt in (("wm", st.wm.opt), ("actor", st.ac.actor_opt),
+                       ("critic", st.ac.critic_opt)):
+            for i, (mu, nu) in enumerate(zip(opt.mu, opt.nu)):
+                out.append((f"{m}.{i}", mu, nu, None if opt.blocks is None else opt.blocks[i]))
+        return out
+
+    def update(kind, with_plan):
+        tr = Trainer(cfg, device="cuda:0", seed=cfg.train.seed,
+                     plan=plan if with_plan else None)
+        st = tr.init_state()
+        with torch.no_grad():
+            for q in st.ac.target_critic.denses[-1].parameters():
+                q.mul_(UPDATE_CRITIC_SCALE)
+        ring = tr.buffer.add_batch(tr.init_ring(), *(torch.from_numpy(c).to("cuda:0")
+                                                     for c in data))
+        before = {k: (p.detach().clone(), p._version) for k, p in named(st)}
+        gen = torch.Generator(device="cuda:0").manual_seed(UPDATE_SEED)
+        step = tr.wm_step if kind == "wm" else tr.ac_step
+        st, metrics = step(st, ring, gen)
+        torch.cuda.synchronize()
+        out = {"grads": list(steps), "s_scale": float(st.ac.s_scale),
+               "delta": {k: (p.detach() - before[k][0]).float() for k, p in named(st)},
+               "silent": [k for k, p in named(st)
+                          if not torch.equal(p, before[k][0]) and p._version == before[k][1]],
+               "digest": {k: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+                          for k, p in named(st)},
+               "moments": moments(st),
+               "skipped": float(metrics[f"{kind}/update_skipped"]),
+               "loss": float(metrics["wm/loss" if kind == "wm" else "ac/loss_actor"])}
+        steps[:] = []
+        return out
+
+    def gap(got, ref):
+        norms = [float(r.norm()) for r in ref]
+        top = max(norms)
+        return max(float((g - r).norm()) / n for g, r, n in zip(got, ref, norms)
+                   if n >= 1e-6 * top)
+
+    agent_mod.adamw_update = wm_mod.adamw_update = adamw
+    try:
+        calls = plan.calls
+        got = {kind: update(kind, True) for kind in ("wm", "ac")}
+        out = {"calls": plan.calls - calls, "seconds_by": dict(plan.seconds_by)}
+        ref = {kind: update(kind, False) for kind in ("wm", "ac")}
+    finally:
+        agent_mod.adamw_update = wm_mod.adamw_update = real
+    for kind in ("wm", "ac"):
+        g, r = got[kind], ref[kind]
+        moment_gap = 0.0
+        for (_, mu, nu, b), (_, mu_ref, nu_ref, _) in zip(g["moments"], r["moments"],
+                                                          strict=True):
+            if b is not None:
+                mu_ref, nu_ref = b.of(mu_ref), b.of(nu_ref)
+            for a, c in ((mu, mu_ref), (nu, nu_ref)):
+                if float(c.norm()) > 0:
+                    moment_gap = max(moment_gap, float((a - c).norm() / c.norm()))
+        sharded = [(mu, nu, mu_ref) for (_, mu, nu, b), (_, mu_ref, _, _)
+                   in zip(g["moments"], r["moments"]) if b is not None]
+        out[kind] = {
+            "grad_gap": max(gap(a, c) for a, c in zip(g["grads"], r["grads"], strict=True)),
+            "delta_gap": gap(list(g["delta"].values()), list(r["delta"].values())),
+            "moment_gap": moment_gap, "silent": g["silent"], "digest": g["digest"],
+            "skipped": g["skipped"], "loss": g["loss"], "ref_loss": r["loss"],
+            "s_scale": g["s_scale"], "ref_s_scale": r["s_scale"], "n_steps": len(g["grads"]),
+            "blocks": [(b.axis, b.index, b.parts) for _, _, _, b in g["moments"]
+                       if b is not None],
+            "sharded_moments": sum(mu.numel() + nu.numel() for mu, nu, _ in sharded),
+            "sharded_moments_one_process": sum(2 * mu_ref.numel() for _, _, mu_ref in sharded)}
+    return out
+
+
+def _rank_model_update_main(rank: int, port: int, tmp: str) -> None:
+    """One rank of ``run_model_update_check``: joins the gloo group on cuda:0
+    and runs ``_rank_model_update_check``; writes ``tmp/rank{rank}.pt``."""
+    import traceback
+
+    _rank_env(rank, port)
+    import torch
+
+    from dreamer_tpu_torch.parallel import distributed
+
+    result = {"rank": rank}
+    try:
+        distributed.init_distributed("gloo", "cuda:0")
+        result["update"] = _rank_model_update_check(rank)
+    except BaseException:   # noqa: BLE001 - reported by the parent, which fails
+        result["error"] = traceback.format_exc()
+    finally:
+        torch.save(result, f"{tmp}/rank{rank}.pt")
+        distributed.shutdown()
+
+
+def run_model_update_check(card: str):
+    """One world-model and one actor-critic update at [1, 2] on the card
+    (gloo, each rank on cuda:0) against one process's, from the crafted
+    state of ``_rank_model_update_check``, in two ranks of its own.  Returns
+    ``report_model_update``'s (rank 0's, rank 1's, the list of what
+    failed)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results, seconds = spawn_ranks(_rank_model_update_main, "model update check", tmp)
+    return report_model_update(results[0]["update"], results[1]["update"],
+                               f"{seconds:.2f} s with the spawn", card)
+
+
+def report_model_update(u0: dict, u1: dict, seconds: str, card: str):
+    """Gate and print the two ranks' ``_rank_model_update_check`` results;
+    returns (rank 0's, rank 1's, the list of what failed)."""
+    failures = []
+    equal = True
+    for kind, label in (("wm", "world-model"), ("ac", "actor-critic")):
+        a, b = u0[kind], u1[kind]
+        differ = [k for k in a["digest"] if a["digest"][k] != b["digest"][k]]
+        if differ:
+            equal = False
+            failures.append(f"after the {label} update the ranks' {differ[:4]} differ "
+                            f"({len(differ)} tensors)")
+        for r, u in enumerate((a, b)):
+            for key in ("grad_gap", "delta_gap", "moment_gap"):
+                if not u[key] <= UPDATE_GRAD_RTOL:
+                    failures.append(f"rank {r}'s {label} {key} {u[key]:.3e} from one process's")
+            if u["silent"]:
+                failures.append(f"rank {r}'s {label} update changed {u['silent'][:4]} without "
+                                f"moving their versions ({len(u['silent'])} tensors)")
+            if u["skipped"] != 0.0 or not math.isfinite(u["loss"]):
+                failures.append(f"rank {r}'s {label} update skipped {u['skipped']}, loss "
+                                f"{u['loss']}")
+            if 2 * u["sharded_moments"] != u["sharded_moments_one_process"]:
+                failures.append(f"rank {r} holds {u['sharded_moments']} moments of the sharded "
+                                f"weights, one process {u['sharded_moments_one_process']}")
+    scale_gaps = [abs(u["ac"]["s_scale"] - u["ac"]["ref_s_scale"]) / u["ac"]["ref_s_scale"]
+                  for u in (u0, u1)]
+    if max(scale_gaps) > MODEL_UPDATE_SCALE_RTOL:
+        failures.append(f"return scale {max(scale_gaps):.3e} from one process's")
+    if u0["wm"]["sharded_moments"] != MODEL2_SHARDED_WEIGHTS:
+        failures.append(f"the sharded weights' moments on a rank hold "
+                        f"{u0['wm']['sharded_moments']} elements, not {MODEL2_SHARDED_WEIGHTS}")
+    coll = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in u0["seconds_by"].items())
+    print(f"model update check: one world-model and one actor-critic update of [1, 2] (2 ranks, "
+          f"gloo, one card) against one process's in bf16 at {CONFIG_64ENV.name}'s widths "
+          f"(batch {MODEL_UPDATE_BATCH}), the target critic's output x{UPDATE_CRITIC_SCALE}: "
+          + "; ".join(
+              f"{kind}: gradients {u0[kind]['grad_gap']:.3e} / {u1[kind]['grad_gap']:.3e}, "
+              f"updates {u0[kind]['delta_gap']:.3e} / {u1[kind]['delta_gap']:.3e}, moments "
+              f"{u0[kind]['moment_gap']:.3e} / {u1[kind]['moment_gap']:.3e} (ranks 0 / 1, "
+              f"relative L2, tolerance {UPDATE_GRAD_RTOL}), loss {u0[kind]['loss']:.6g} against "
+              f"{u0[kind]['ref_loss']:.6g}" for kind in ("wm", "ac"))
+          + f"; return scale {u0['ac']['s_scale']:.9g} against {u0['ac']['ref_s_scale']:.9g} "
+          f"(rel {max(scale_gaps):.2e}, tolerance {MODEL_UPDATE_SCALE_RTOL}); every parameter "
+          f"bit-equal across the ranks: {equal}; rank 1's blocks (axis, index, parts) "
+          f"{u1['wm']['blocks']}; moments of the sharded weights a rank "
+          f"{u0['wm']['sharded_moments']} (one process "
+          f"{u0['wm']['sharded_moments_one_process']}); {u0['calls']} collectives ({coll}); "
+          f"{seconds}; {'; '.join(failures) or 'held'} on {card}",
+          flush=True)
+    return u0, u1, failures
+
+
+def run_model_axis_lifecycle(card: str):
+    """The model axis on the card: ``_rank_main`` with LEG_MODEL2 on two
+    spawned ranks (each on cuda:0, gloo), gated here: each rank's learner
+    launched all four kernels and rank 0's host actor none; rank 0 alone
+    built a farm and stepped the 64 envs; the two rings bit-equal after the
+    first round; the ranks' parameters equal after each run; every update
+    finite and not skipped; the resume restored iteration 2 and the ring;
+    each rank holds half of one process's moments of the sharded weights.
+    The same ranks ran the update check first (``_rank_model_update_check``,
+    gated by ``report_model_update``).  Then each kernel held against its
+    plain version at rank 0's operands.  Returns each rank's launches and
+    rank 0's kernel numbers."""
+    import csv
+    import functools
+    import os
+    import tempfile
+
+    import torch
+
+    from dreamer_tpu_torch.config import DreamerConfig
+
+    label = "lifecycle_64env_model2"
+    with tempfile.TemporaryDirectory() as tmp:
+        results, seconds = spawn_ranks(functools.partial(_rank_main, leg=LEG_MODEL2), label,
+                                       tmp)
+        operands = torch.load(f"{tmp}/operands0.pt", map_location="cuda:0", weights_only=False)
+        rows = []
+        for name in ("metrics.leg1.csv", "metrics.csv"):
+            with open(f"{tmp}/logs/{name}") as f:
+                rows += [row for row in csv.DictReader(f) if row.get("wm/loss")]
+        shards = sorted(n for n in os.listdir(f"{tmp}/models") if ".rank" in n)
+
+    first, total = ITERATIONS_64ENV
+    for run in ("first", "resumed"):
+        a, b = (res[run] for res in results)
+        for res in results:
+            r, rank = res[run], res["rank"]
+            if not all(r["launches"].values()) or any(r["actor_launches"].values()):
+                fail(f"{label} ({run}): rank {rank}'s learner launched {r['launches']}, its "
+                     f"host actor {r['actor_launches']}")
+            if r["farm"] != (rank == 0) or r["envs"] != (64 if rank == 0 else 0) \
+                    or r["global_envs"] != 64 or r["ring"][0] != 64:
+                fail(f"{label} ({run}): rank {rank} built a farm {r['farm']}, stepped "
+                     f"{r['envs']} envs of {r['global_envs']} into a ring of {r['ring']}")
+            if r["backend"] != "gloo":
+                fail(f"{label}: the ranks joined over {r['backend']}")
+            if not r["skipped"] or any(wm or ac or not math.isfinite(loss)
+                                       for wm, ac, loss in r["skipped"]):
+                fail(f"{label} ({run}): rank {rank}'s updates (wm skipped, ac skipped, wm "
+                     f"loss) {r['skipped']}")
+            e = r["elements"]
+            if 2 * e["sharded_moments"] != e["sharded_moments_one_process"] \
+                    or e["sharded_moments"] != MODEL2_SHARDED_WEIGHTS:
+                fail(f"{label}: rank {rank} holds {e}")
+        if a["checksum"] != b["checksum"]:
+            fail(f"{label} ({run}): the ranks' parameters differ: checksums {a['checksum']} "
+                 f"and {b['checksum']}")
+        if run == "first" and a["first_ring"] != b["first_ring"]:
+            fail(f"{label}: after the first round the rings differ: {a['first_ring']} and "
+                 f"{b['first_ring']}")
+        if not (a["metrics_enabled"] and a["csv_opened"]) or b["metrics_enabled"] \
+                or b["csv_opened"] or not a["evals"] or b["evals"]:
+            fail(f"{label} ({run}): metrics written by rank 0 {a['csv_opened']}, rank 1 "
+                 f"{b['csv_opened']}; evals {a['evals']}, {b['evals']}")
+    # The ring restored as the first run left it: its kickstart round and
+    # its iterations' rounds.
+    cfg = DreamerConfig.from_yaml(str(CONFIG_64ENV), LEG_MODEL2)
+    size = (cfg.train.random_iterations + first) * cfg.train.sequence_length
+    for res in results:
+        got = res["resumed"].get("restored", {})
+        if not got.get("found") or got["iteration"] != first or got["size"] != size \
+                or res["resumed"]["iteration"] != total:
+            fail(f"{label}: rank {res['rank']} resumed at {got} and ended at "
+                 f"{res['resumed']['iteration']}, expected {first} with a ring of {size} steps "
+                 f"then {total}")
+    if [int(row["iteration"]) for row in rows] != list(range(1, total + 1)):
+        fail(f"{label}: metrics rows {[row['iteration'] for row in rows]}")
+    if shards[-RANKS:] != [f"ckpt_{total}.rank{r}" for r in range(RANKS)]:
+        fail(f"{label}: the checkpoint's shards are {shards}")
+
+    failures = report_model_update(results[0]["update"], results[1]["update"],
+                                   "in the leg's ranks, before the lifecycle", card)[2]
+    if failures:
+        fail(f"{label}: the update check: {'; '.join(failures)}")
+
+    def median(values):
+        return statistics.median(values) if values else float("nan")
+
+    steps = [float(row["perf/env_steps_per_s"]) for row in rows]
+    print(f"{label}: cli.train on {CONFIG_64ENV.name} with {' '.join(LEG_MODEL2)} as 2 ranks "
+          f"on one card over gloo (each cuda:0; rank 0 steps the 64 envs in AsyncEnvFarm and "
+          f"broadcasts each round, both take the 128 rows), then --resume: {seconds:.2f} s for "
+          f"the leg with its spawn; global median perf/env_steps_per_s {median(steps):.2f} "
+          f"(rank 0's rows); the rings after the first round bit-equal "
+          f"({results[0]['first']['first_ring'][0][:16]}) on {card}", flush=True)
+    for res in results:
+        for run in ("first", "resumed"):
+            r = res[run]
+            e = r["elements"]
+            rows_ms = [t * 1e3 for t in r["rows_s"]]
+            print(f"{label}: rank {res['rank']} ({run}, {r['seconds']:.2f} s): median "
+                  f"perf/learner_s {median(r['learner_s']):.4f}, perf/rollout_s "
+                  f"{median(r['rollout_s']):.4f}; an iteration's gradient reduces (its 4 "
+                  f"updates) {median(r['reduce_update_s']) * 1e3:.1f} ms and weight gathers "
+                  f"(its 2 world-model updates; no actor or critic weight shards) "
+                  f"{median(r['gather_weights_s']) * 1e3:.1f} ms; a round's row broadcast "
+                  f"{median(rows_ms):.1f} ms ({len(rows_ms)} rounds: "
+                  f"{[f'{t:.1f}' for t in rows_ms]}); holds {e['params']} parameter elements "
+                  f"and {e['moments']} moment elements (one process {e['moments_one_process']}), "
+                  f"of which the sharded weights' {e['sharded_moments']} (one process "
+                  f"{e['sharded_moments_one_process']}); learner launches {r['launches']}, host "
+                  f"actor {r['actor_launches']}; evals {r['evals']}", flush=True)
+    for name, need in (("encoder", 2), ("gru_cell", 1), ("gru_scan", 1), ("imagine_rollout", 1)):
+        if len(operands[name]) < need:
+            fail(f"{label}: rank 0's learner gave {name} only {list(operands[name])}")
+    kernels_at = hold_at_path(operands, card, f"{label} rank 0")
+    launches = [{n: res["first"]["launches"][n] + res["resumed"]["launches"][n]
+                 for n in res["first"]["launches"]} for res in results]
+    return launches, kernels_at
 
 
 def check_nccl_world_one(card: str) -> None:
@@ -2925,6 +3360,22 @@ def main() -> int:
                 continue
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 k[f"{key}_at_2rank_{shape.replace(' ', '_')}"] = tm[key]
+
+    # The model axis: car_racer_64env.yaml at runtime.mesh_shape=[1,2], two
+    # ranks on the card over gloo; each kernel launched by both ranks'
+    # learners and held at rank 0's operands.
+    on_model2, at_model2 = run_model_axis_lifecycle(card)
+    for k in kernels:
+        for r, launches in enumerate(on_model2):
+            if launches[k["name"]] == 0:
+                fail(f"the model-axis lifecycle's rank {r} never launched {k['name']}")
+            k["launches_by_path"][f"lifecycle_64env_model2_rank{r}"] = launches[k["name"]]
+        for shape, tm in at_model2[k["name"]].items():
+            if shape == "max_abs_err":
+                k["max_abs_err_at_model2"] = tm
+                continue
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                k[f"{key}_at_model2_{shape.replace(' ', '_')}"] = tm[key]
     check_nccl_world_one(card)
 
     # Times at the main path's shapes: the GRU cell at 50 rows, the whole-scan

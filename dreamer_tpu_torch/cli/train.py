@@ -4,8 +4,8 @@
         --env-maker gymnasium:make \
         [--overrides train.training_iterations=100 ...] [--resume] [--device cpu]
 
-On several ranks (data parallelism, ``runtime.mesh_shape``'s data axis),
-through torchrun:
+On several ranks (``runtime.mesh_shape = [n, m]``, n x m ranks), through
+torchrun:
 
     torchrun --nproc_per_node 2 -m dreamer_tpu_torch.cli.train --config ... \
         --device cpu                      # two ranks on the CPU over gloo
@@ -13,6 +13,15 @@ through torchrun:
                                           # one card a rank, cuda:{LOCAL_RANK}, nccl
     torchrun --nproc_per_node 2 -m dreamer_tpu_torch.cli.train --config ... \
         --device cuda:0 --dist-backend gloo   # two ranks sharing one card
+    torchrun --nproc_per_node 4 -m dreamer_tpu_torch.cli.train --config ... \
+        --overrides runtime.mesh_shape=[2,2] ...   # a model axis of 2
+
+The default mesh is ``[world_size, 1]``, the data axis alone.  A model axis
+m > 1 (``--overrides runtime.mesh_shape=[n,m]``, n x m the world size)
+gives the update of one process with n data shards, as JAX's column-sharded
+weights do: each rank of a model group of m keeps AdamW's moments of its
+block of the big kernels' columns, updates that block and gathers the
+others (``parallel.sharding``); the group's first rank steps its envs.
 
 Reads the nested YAML schema and the reference's flat one.  Runs on the card
 unless ``--device`` names another device, and fails without one.  Every
@@ -93,7 +102,8 @@ def main(argv=None) -> float:
         print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}",
               flush=True)
         if multiprocess:
-            print(f"data parallel: {distributed.world_size()} ranks on "
+            n, m = cfg.runtime.mesh_shape
+            print(f"mesh [{n}, {m}] (data, model): {distributed.world_size()} ranks on "
                   f"{distributed.hosts()} host(s), {torch.distributed.get_backend()}",
                   flush=True)
     if cfg.runtime.debug_nans and primary:

@@ -32,6 +32,9 @@ def gru_cell_core(x, h, wi, wh, bi, bh) -> torch.Tensor:
 
 
 class GRUCell(nn.Module):
+    # The flax layout's output columns, gate order r, z, n (``parallel.sharding``).
+    COLUMN_AXES = {"kernel_i": 1, "kernel_h": 1}
+
     def __init__(self, in_dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

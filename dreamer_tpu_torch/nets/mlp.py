@@ -36,6 +36,9 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight`` is (out, in), the transpose of flax's kernel."""
 
+    # The axis of the flax kernel's output columns (``parallel.sharding``).
+    COLUMN_AXES = {"weight": 0}
+
     def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, zero_init: bool = False):
         super().__init__()

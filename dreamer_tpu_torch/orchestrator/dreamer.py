@@ -45,18 +45,25 @@ base-env maker ``env_maker`` (``"module:function"``, e.g. ``gymnasium:make``;
 or with ``env.async_envs`` in ``AsyncEnvFarm``'s spawned workers; eval
 always in process.
 
-Data parallelism (``runtime.mesh_shape = [n, 1]``, JAX's multi-process
-path): one rank a process, joined by ``parallel.init_distributed`` (the CLI
-calls it).  ``env.num_envs`` is the envs of a host; the global farm is that
-times the hosts (``WORLD_SIZE / LOCAL_WORLD_SIZE``), and each rank steps its
-block of it with its own env seeds (``train.seed + rank * 100_003``) and
-rollout stream, and keeps their ring.  The learner is one update of the
-global batch on every rank (``Trainer`` with a ``MeshPlan``).  Rank 0
-decides a stop and runs every eval, and the others take its flag and
-reward; rank 0 alone writes metrics, ``run_meta.json``, ``kickstart.json``,
-``best.json`` and ``agent_best``, and the checkpoint's state, beside every
-rank's ring shard (``utils.checkpoint``).  More than one rank needs the
-host-local actor (``runtime.rollout_device='cpu'``), as in JAX.
+The mesh (``runtime.mesh_shape = [n, m]``, JAX's multi-process path): one
+rank a process, joined by ``parallel.init_distributed`` (the CLI calls it);
+rank r has data index d = r // m and model index r % m.  ``env.num_envs`` is
+the envs of a host; the global farm is that times the hosts (``WORLD_SIZE /
+LOCAL_WORLD_SIZE``), cut into n blocks.  Block d is stepped by the first
+rank of model group d (model index 0) alone, with its own env seeds
+(``train.seed + d * 100_003``), rollout stream and host actor; after every
+round, the kickstart's and the re-prime's too, it broadcasts the round's
+rows to its group (``MeshPlan.broadcast_rows``), so every rank of the group
+holds the same ring bit for bit; the others build no farm.  The learner is
+one update of the global batch on every rank (``Trainer`` with a
+``MeshPlan``); under m > 1 each rank keeps AdamW's moments of its block of
+the sharded weights only.  Rank 0 decides a stop and runs every eval, and
+the others take its flag and reward; rank 0 alone writes metrics,
+``run_meta.json``, ``kickstart.json``, ``best.json`` and ``agent_best``,
+and the checkpoint's state, beside every rank's shard (``utils.checkpoint``:
+its moments of the sharded weights and its rollout stream; the ring in the
+shard of its group's first rank).  More than one rank needs the host-local
+actor (``runtime.rollout_device='cpu'``), as in JAX.
 
 Differences from the JAX orchestrator:
 - Without the host-local actor the rollout and eval policy computes in the
@@ -65,12 +72,14 @@ Differences from the JAX orchestrator:
   weights and noise, the rollout ring and the eval actions agree with JAX's
   to 1e-5 (``tests/test_torch_orchestrator_policy.py``); the host-local actor
   acts in float32 as JAX's does (``tests/test_torch_actor_learner.py``).
-- One device a rank.  A model axis in ``runtime.mesh_shape`` raises a
-  ``ValueError`` naming the ROADMAP item that will bring it; so does a
-  compute dtype other than bfloat16 on a CUDA device, whose kernels take
-  bf16 only.
-- The rollout stream of rank r is seeded ``train.seed + 1 + r * 100_003``
-  (JAX folds the process index into its key).
+- One device a rank.  A compute dtype other than bfloat16 on a CUDA device,
+  whose kernels take bf16 only, raises a ``ValueError``.
+- Under the model axis every rank keeps every weight whole and runs the
+  whole forward and backward of its data block (the hand kernels read whole
+  weights); JAX splits the sharded weights' columns across the group.  The
+  update and the optimizer state are JAX's (``parallel.sharding``).
+- The rollout stream of data index d is seeded ``train.seed + 1 + d *
+  100_003`` (JAX folds the process index into its key).
 """
 
 from __future__ import annotations
@@ -92,7 +101,7 @@ from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import sample_gumbel
 from dreamer_tpu_torch.envs import AsyncEnvFarm, EnvFarm, make_env, missing_maker_message
 from dreamer_tpu_torch.orchestrator import broadcast
-from dreamer_tpu_torch.parallel import MeshPlan, distributed, make_mesh, refuse_model_axis
+from dreamer_tpu_torch.parallel import MeshPlan, distributed, make_mesh
 from dreamer_tpu_torch.train.state import AdamState
 from dreamer_tpu_torch.train.step import Policy, Trainer, resolve_device
 from dreamer_tpu_torch.utils import CheckpointManager, MetricsLogger
@@ -108,12 +117,10 @@ RANK_SEED_STRIDE = 100_003
 
 
 def refuse_unported(cfg: DreamerConfig, device: torch.device) -> None:
-    """Raise ``ValueError`` for a setting the port does not run yet, for an
-    overlapped rollout without the host-local actor (as JAX does), and for
-    a compute dtype the card's kernels do not take."""
+    """Raise ``ValueError`` for an overlapped rollout without the host-local
+    actor (as JAX does), and for a compute dtype the card's kernels do not
+    take."""
     r = cfg.runtime
-    if r.mesh_shape is not None:
-        refuse_model_axis(int(r.mesh_shape[1]))
     if r.async_rollout and r.rollout_device != "cpu":
         raise ValueError("runtime.async_rollout requires runtime.rollout_device='cpu' (the "
                          "actor must not read the learner's weights while they are updated)")
@@ -173,7 +180,7 @@ class Dreamer:
             raise ValueError(f"Dreamer: {missing_maker_message(cfg.env.env_id)}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        # The data axis: this rank's plan, or None for one process.
+        # The mesh: this rank's plan, or None for one process.
         world = distributed.world_size()
         if world > 1 and not cfg.runtime.mesh_shape:
             raise ValueError(f"a run of {world} ranks needs runtime.mesh_shape (the CLI "
@@ -212,7 +219,11 @@ class Dreamer:
         # Learner stream: replay draws and update noise.  Rollout stream: the
         # policy's noise in rollout and eval, on the policy's device.
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
-        self._rank_offset = self.rank * RANK_SEED_STRIDE
+        # The envs, their seeds and the rollout stream follow the data index;
+        # a model group's first rank alone steps them.
+        data_index = 0 if self.plan is None else self.plan.data_index
+        self.steps_envs = self.plan is None or self.plan.model_index == 0
+        self._rank_offset = data_index * RANK_SEED_STRIDE
         self.rollout_rng = torch.Generator(device=self.policy.device).manual_seed(
             cfg.train.seed + 1 + self._rank_offset)
         self.buf = self.trainer.init_ring()
@@ -232,7 +243,7 @@ class Dreamer:
         farm_cls = AsyncEnvFarm if cfg.env.async_envs else EnvFarm
         self.farm = farm_cls([self._env_factory] * n_envs,
                              seed=cfg.train.seed + self._rank_offset,
-                             next_step=cfg.env.next_step_autoreset)
+                             next_step=cfg.env.next_step_autoreset) if self.steps_envs else None
         self.eval_env = self._env_factory()
         self._eval_farm: Optional[EnvFarm] = None
         self._eval_seed = cfg.train.seed + 10_000
@@ -266,7 +277,8 @@ class Dreamer:
             self.ckpt.close()
         finally:
             self.metrics.close()
-            self.farm.close()
+            if self.farm is not None:
+                self.farm.close()
             self.eval_env.close()
             if self._eval_farm is not None:
                 self._eval_farm.close()
@@ -381,10 +393,6 @@ class Dreamer:
     # Rollout
     # ------------------------------------------------------------------ #
 
-    def _dev(self, x: np.ndarray) -> torch.Tensor:
-        """A host array on the learner's device."""
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
     def _act(self, x: np.ndarray) -> torch.Tensor:
         """A host array on the policy's device."""
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.policy.device)
@@ -410,8 +418,9 @@ class Dreamer:
         move changes), copy them into the actor's.  A CPU learner's are
         copied as they are, in float32; a card's go through the wire at
         ``runtime.broadcast_dtype`` (``broadcast``).  Called before each
-        round and each eval, never inside one."""
-        if not self.host_actor:
+        round and each eval, never inside one.  A rank that steps no envs
+        keeps no actor's weights (rank 0, which evaluates, steps envs)."""
+        if not self.host_actor or not self.steps_envs:
             return
         learner = self._learner_weights()
         stamp = tuple((p.data_ptr(), p._version) for p in learner)
@@ -447,7 +456,10 @@ class Dreamer:
         """Step the env farm for one round; returns the host-side chunk.
         Touches the farm, the policy and the rollout stream only, never the
         ring or the learner: with the host-local actor it makes no CUDA call,
-        so it may run on a thread beside the learner."""
+        so it may run on a thread beside the learner.  A rank that steps no
+        envs collects nothing: its group's first rank sends the round."""
+        if not self.steps_envs:
+            return None, {}
         p, n = self.policy, self.farm.num_envs
         if self._obs is None:
             self._obs = self.farm.reset_all()
@@ -486,12 +498,32 @@ class Dreamer:
         return chunks, metrics
 
     def _write_chunk(self, chunks):
-        """One ring write per round: the (E, T, ...) chunk."""
-        obs, act, rew, cont, first = chunks
+        """One ring write per round: the (E, T, ...) chunk; under a model
+        axis the group's first rank's, broadcast to the group first."""
+        obs, act, rew, cont, first = self._round_rows(chunks)
         self.buf = self.trainer.buffer.add_batch(
-            self.buf, self._dev(obs), self._dev(act.astype(np.float32)),
-            self._dev(rew.astype(np.float32)), self._dev(cont.astype(np.float32)),
-            first=None if first is None else self._dev(first.astype(np.float32)))
+            self.buf, obs.to(self.device), act.to(self.device), rew.to(self.device),
+            cont.to(self.device), first=None if first is None else first.to(self.device))
+
+    def _round_rows(self, chunks):
+        """A round's host chunk as tensors, the frames uint8 and the rest
+        float32; under a model axis the group's first rank's, on every rank
+        of the group (``MeshPlan.broadcast_rows``, on the plan's host device)."""
+        sharing = self.plan is not None and self.plan.n_model > 1
+        dev = self.plan.host_device if sharing else torch.device("cpu")
+        if chunks is not None:
+            rows = [None if c is None else torch.from_numpy(np.ascontiguousarray(
+                c if i == 0 else c.astype(np.float32))).to(dev) for i, c in enumerate(chunks)]
+        else:   # the group's first rank sends them
+            b = self.buf
+            E, T = b.obs.shape[0], self.cfg.train.sequence_length
+            rows = [torch.empty((E, T, *b.obs.shape[2:]), dtype=torch.uint8, device=dev),
+                    torch.empty((E, T, b.action.shape[-1]), device=dev),
+                    torch.empty((E, T), device=dev), torch.empty((E, T), device=dev),
+                    None if b.first is None else torch.empty((E, T), device=dev)]
+        if sharing:
+            self.plan.broadcast_rows(rows)
+        return rows
 
     # ------------------------------------------------------------------ #
     # Evaluation and run
@@ -606,7 +638,7 @@ class Dreamer:
             "rng": self.rng.get_state(),
             "rollout_rng": self.rollout_rng.get_state(),
             "iteration": self.iteration,
-            "env_seed": self.farm.seed - self._rank_offset,
+            "env_seed": None if self.farm is None else self.farm.seed - self._rank_offset,
             "eval_seed": self._eval_seed,
         }
         if self.cfg.runtime.checkpoint_replay:
@@ -621,10 +653,45 @@ class Dreamer:
         if self.plan is None:
             return self.ckpt.save(self.iteration, tree)
         # The state (alike on every rank, written by rank 0) and this rank's
-        # shard: its ring and its rollout stream.
+        # shard: its rollout stream, its moments of the sharded weights, and
+        # (on a model group's first rank) the group's ring.
         shard = {k: tree.pop(k) for k in ("rollout_rng", "buffer") if k in tree}
+        if not self.steps_envs:
+            shard.pop("buffer", None)
+        shard["moments"] = self._split_moments(tree["state"])
         tree["world_size"] = self.plan.world_size
+        tree["mesh_shape"] = list(self.plan.mesh_shape)
         return self.ckpt.save(self.iteration, tree, shard=shard)
+
+    def _optimizers(self):
+        s = self.state
+        return (("wm_opt", s.wm.opt), ("actor_opt", s.ac.actor_opt),
+                ("critic_opt", s.ac.critic_opt))
+
+    def _split_moments(self, state_tree) -> Dict[str, Dict[str, list]]:
+        """Take the moments of the sharded weights (this rank's blocks) out
+        of a checkpoint's state, leaving None in their places."""
+        out = {}
+        for key, opt in self._optimizers():
+            if opt.blocks is None:
+                continue
+            out[key] = {}
+            for kind in ("mu", "nu"):
+                mine = [None] * len(opt.blocks)
+                for i, b in enumerate(opt.blocks):
+                    if b is not None:
+                        mine[i], state_tree[key][kind][i] = state_tree[key][kind][i], None
+                out[key][kind] = mine
+        return out
+
+    @staticmethod
+    def _merge_moments(state_tree, moments) -> None:
+        """Put a shard's moments back into the places ``_split_moments`` left."""
+        for key, kinds in moments.items():
+            for kind, mine in kinds.items():
+                for i, t in enumerate(mine):
+                    if t is not None:
+                        state_tree[key][kind][i] = t
 
     def _maybe_save_best(self, reward: float):
         """Export the weights and best.json whenever eval improves (outside
@@ -667,8 +734,7 @@ class Dreamer:
         s = self.state
         with torch.no_grad():
             self._load_modules(saved)
-            for opt, key in ((s.wm.opt, "wm_opt"), (s.ac.actor_opt, "actor_opt"),
-                             (s.ac.critic_opt, "critic_opt")):
+            for key, opt in self._optimizers():
                 _load_adam(opt, saved[key], key)
             _copy_into(s.ac.s_scale, saved["s_scale"], "s_scale")
             _copy_into(s.step, saved["step"], "step")
@@ -693,12 +759,14 @@ class Dreamer:
             return False
         _, tree = result
         self._restore_generators(tree)
+        self._merge_moments(tree["state"], tree.get("moments", {}))
         self._load_state(tree["state"])
         self._ring_restored = "buffer" in tree
         if self._ring_restored:
             self._load_ring(tree["buffer"])
         self.iteration = int(tree["iteration"])
-        self.farm.seed = int(tree["env_seed"]) + self._rank_offset
+        if self.farm is not None:
+            self.farm.seed = int(tree["env_seed"]) + self._rank_offset
         self._eval_seed = int(tree["eval_seed"])
         # The recurrent rollout state is not checkpointed: the next round
         # starts new episodes.

@@ -1,7 +1,7 @@
 from dreamer_tpu_torch.parallel.distributed import (hosts, init_distributed, is_primary, rank,
                                                    rank_device, shutdown, world_size)
-from dreamer_tpu_torch.parallel.mesh import make_mesh, refuse_model_axis
-from dreamer_tpu_torch.parallel.sharding import MeshPlan
+from dreamer_tpu_torch.parallel.mesh import make_mesh
+from dreamer_tpu_torch.parallel.sharding import MeshPlan, model_blocks
 
-__all__ = ["MeshPlan", "hosts", "init_distributed", "is_primary", "make_mesh", "rank",
-           "rank_device", "refuse_model_axis", "shutdown", "world_size"]
+__all__ = ["MeshPlan", "hosts", "init_distributed", "is_primary", "make_mesh", "model_blocks",
+           "rank", "rank_device", "shutdown", "world_size"]

@@ -5,7 +5,10 @@ One rank is one process on one device.  ``torchrun`` (``python -m
 torch.distributed.run``) sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``; a launcher of its
 own sets the same.  Call ``init_distributed`` before anything touches CUDA;
-it is a no-op when ``WORLD_SIZE`` is unset or 1.
+it is a no-op when ``WORLD_SIZE`` is unset or 1.  How the ranks lay out
+as ``runtime.mesh_shape = [n, m]`` (n x m of them, the model axis varying
+fastest) is ``mesh.make_mesh``'s; the CLI takes ``[n, m]`` from
+``--overrides`` and defaults it to ``[world_size, 1]``.
 
 Backends: ``nccl`` on CUDA devices, one card a rank; ``gloo`` on the CPU, and
 on CUDA devices where ranks share a card (NCCL refuses two ranks on one

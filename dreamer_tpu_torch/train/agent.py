@@ -19,11 +19,14 @@ Semantics, as in JAX:
   naming the actor or critic update and the loss term, gradient or updated
   parameter (``train.debug``).
 
-Under a data-parallel ``plan`` (``parallel.MeshPlan``) the batch is this
-rank's block of rows: the return scale's P95 - P05 is taken over every
-rank's returns (``MeshPlan.gather``), the gradients are averaged and the
+Under a ``plan`` (``parallel.MeshPlan``) the batch is this rank's data
+block of rows: the return scale's P95 - P05 is taken over every data
+block's returns (``MeshPlan.gather``), the gradients are averaged and the
 update skipped on every rank where any rank's loss is not finite
 (``MeshPlan.reduce_update``), so the update is that of the whole batch.
+Under the model axis a rank computes the step of its block of each sharded
+weight (``AdamState.blocks``, ``adamw_update``), and ``MeshPlan.gather_weights``
+writes every rank's blocks of the actor, the critic and the target critic.
 
 The noise is an argument (``ACNoise``): the warm start's gumbels, the dream's
 normal eps and gumbels.  ``Trainer`` draws it from the caller's generator;
@@ -44,7 +47,7 @@ from dreamer_tpu_torch.config import DreamerConfig
 from dreamer_tpu_torch.core.dists import normal_entropy, tanh_normal_logprob
 from dreamer_tpu_torch.core.math import bucket_values, symlog, twohot, twohot_expectation
 from dreamer_tpu_torch.core.returns import lambda_returns, update_return_scale
-from dreamer_tpu_torch.parallel.sharding import MeshPlan
+from dreamer_tpu_torch.parallel.sharding import Block, MeshPlan
 from dreamer_tpu_torch.rssm.rssm import RSSM
 from dreamer_tpu_torch.train.debug import check_finite
 from dreamer_tpu_torch.train.state import ACTrainState, AdamState
@@ -88,9 +91,15 @@ def adamw_update(opt: AdamW, params: Sequence[Tensor], grads: Sequence[Tensor],
         g <- g if |g| < clip else g / |g| * clip   (global norm)
         mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu;  count += 1
         p <- p + (-lr) (mu / (1 - b1^count) / (sqrt(nu / (1 - b2^count)) + eps) + wd p)
-    """
+
+    Under the model axis (``state.blocks``) the norm is the whole gradient's,
+    and a sharded parameter's new value is of this rank's block only: the
+    step is elementwise but for the norm, so the blocks are one process's."""
     g_norm = global_norm(grads)
     trigger = g_norm < opt.clip
+    if state.blocks is not None:
+        params = [p if b is None else b.of(p) for p, b in zip(params, state.blocks)]
+        grads = [g if b is None else b.of(g) for g, b in zip(grads, state.blocks)]
     grads = [torch.where(trigger, g, (g / g_norm) * opt.clip) for g in grads]
     mu = [(1 - opt.b1) * g + opt.b1 * m for g, m in zip(grads, state.mu)]
     nu = [(1 - opt.b2) * g ** 2 + opt.b2 * v for g, v in zip(grads, state.nu)]
@@ -103,7 +112,23 @@ def adamw_update(opt: AdamW, params: Sequence[Tensor], grads: Sequence[Tensor],
     for p, m, v in zip(params, mu, nu):
         u = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps) + opt.weight_decay * p
         new.append(p + (-opt.lr) * u)
-    return new, AdamState(mu=mu, nu=nu, count=count)
+    return new, AdamState(mu=mu, nu=nu, count=count, blocks=state.blocks)
+
+
+def write_update(params: Sequence[Tensor], new: Sequence[Tensor],
+                 blocks: Optional[Sequence[Optional[Block]]], finite: Tensor
+                 ) -> List[Tuple[Tensor, Block, Tensor]]:
+    """Write ``new`` into ``params`` where ``finite`` (the old value where
+    not: ``torch.where``, no host sync).  A parameter that ``blocks`` shards
+    is not written here: its block's value is returned as (parameter, block,
+    value), for ``MeshPlan.gather_weights`` to write every rank's block."""
+    sharded = []
+    for p, s, b in zip(params, new, blocks or [None] * len(params), strict=True):
+        if b is None:
+            p.copy_(torch.where(finite, s, p))
+        else:
+            sharded.append((p, b, torch.where(finite, s, b.of(p))))
+    return sharded
 
 
 class AgentTrainer:
@@ -221,7 +246,10 @@ class AgentTrainer:
             new_c, c_opt = adamw_update(self.critic_opt, old_c, g_critic, state.critic_opt)
             tau = self.cfg.agent.target_tau
             target_p = list(state.target_critic.parameters())
-            new_t = [(1.0 - tau) * t + tau * c for t, c in zip(target_p, new_c)]
+            # The target critic shards as the critic does (the same shapes).
+            c_blocks = state.critic_opt.blocks or [None] * len(target_p)
+            new_t = [(1.0 - tau) * (t if b is None else b.of(t)) + tau * c
+                     for t, c, b in zip(target_p, new_c, c_blocks)]
             if debug:
                 for where, names, g, p in (("actor update", actor_n, g_actor, new_a),
                                            ("critic update", critic_n, g_critic, new_c)):
@@ -232,13 +260,17 @@ class AgentTrainer:
             aux["ac/grad_norm_actor"] = global_norm(g_actor)
             aux["ac/grad_norm_critic"] = global_norm(g_critic)
             aux["ac/update_skipped"] = (~finite).float()
-            for dst, src in ((actor_p, new_a), (critic_p, new_c), (target_p, new_t),
-                             (state.actor_opt.mu, a_opt.mu), (state.actor_opt.nu, a_opt.nu),
+            for dst, src in ((state.actor_opt.mu, a_opt.mu), (state.actor_opt.nu, a_opt.nu),
                              (state.critic_opt.mu, c_opt.mu),
                              (state.critic_opt.nu, c_opt.nu),
                              ([state.actor_opt.count], [a_opt.count]),
                              ([state.critic_opt.count], [c_opt.count])):
                 for d, s in zip(dst, src):
                     d.copy_(torch.where(finite, s, d))
+            sharded = (write_update(actor_p, new_a, state.actor_opt.blocks, finite)
+                       + write_update(critic_p, new_c, state.critic_opt.blocks, finite)
+                       + write_update(target_p, new_t, state.critic_opt.blocks, finite))
+            if sharded:
+                plan.gather_weights(sharded)
             state.s_scale.copy_(s_new)
         return state, aux

@@ -10,13 +10,15 @@ device the encoder, the GRU cell, the whole-scan GRU and the imagination run
 as the hand-written kernels of ``dreamer_tpu_torch.ops``; those take
 bfloat16, so the card needs ``runtime.compute_dtype: bfloat16``.
 
-Data parallelism (``runtime.mesh_shape``'s data axis): a ``Trainer`` built
-with a ``parallel.MeshPlan`` is one rank of S.  ``cfg.env.num_envs`` is the
-global env count; the rank's ring holds its env block (``init_ring``).
-Every rank draws the whole batch's indices and noise from a generator
-seeded alike on every rank, keeps its block of rows, and the plan's
-collectives make the ranks' updates one update of the whole batch.  A
-``Trainer(..., n_shards=S)`` without a plan is that update in one process:
+The mesh (``runtime.mesh_shape = [n, m]``): a ``Trainer`` built with a
+``parallel.MeshPlan`` is one rank of n x m.  ``cfg.env.num_envs`` is the
+global env count; the rank's ring holds its data index's env block
+(``init_ring``), as does every rank of its model group.  Every rank draws
+the whole batch's indices and noise from a generator seeded alike on every
+rank, keeps its data block of rows, and the plan's collectives make the
+ranks' updates one update of the whole batch; under m > 1 a rank keeps the
+moments of its block of each sharded weight (``AdamState.blocks``).  A
+``Trainer(..., n_shards=n)`` without a plan is that update in one process:
 the same draws over the whole ring.
 """
 
@@ -160,14 +162,15 @@ class Trainer:
                  plan: Optional[MeshPlan] = None, n_shards: int = 1):
         """Build the world-model nets at ``cfg``'s widths with weights drawn
         from ``seed`` (on the CPU) and move them to ``device``.  ``plan``
-        makes this trainer one rank of its data axis; without one,
-        ``n_shards`` draws the batches as that many ranks would."""
+        makes this trainer one rank of its mesh; without one, ``n_shards``
+        draws the batches as that many data shards would."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = plan
         self.n_shards = n_shards if plan is None else plan.n_data
-        # This rank's shard and rows of every batch (all of them without a plan).
-        self.shard = None if plan is None else plan.rank
+        # This rank's shard (its data index) and rows of every batch (all of
+        # them without a plan).
+        self.shard = None if plan is None else plan.data_index
         self.rows = slice(None) if plan is None else plan.row_block(cfg.train.batch_size)
         self.dtype = getattr(torch, cfg.runtime.compute_dtype)
         self.seed = seed
@@ -195,11 +198,16 @@ class Trainer:
     def _global(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return metrics if self.plan is None else self.plan.mean_metrics(metrics)
 
+    def _blocks(self, module):
+        """This rank's blocks of ``module``'s weights under the model axis."""
+        return None if self.plan is None else self.plan.param_blocks(module)
+
     def init_state(self) -> DreamerState:
         """The whole training state (``step.py:85-104``): the world model with
         a fresh AdamW state; actor and critic drawn from the trainer's seed +
         1 (on the CPU), the target critic a copy of the critic, fresh AdamW
-        states and ``s_scale = 1``; step 0."""
+        states and ``s_scale = 1``; step 0.  Under the model axis a sharded
+        weight's moments are of this rank's block (``AdamState.blocks``)."""
         cfg, a = self.cfg, self.cfg.agent
         gen = torch.Generator().manual_seed(self.seed + 1)
         in_dim = cfg.wm.hidden_dim + cfg.wm.latent_dim
@@ -209,10 +217,11 @@ class Trainer:
                         self.dtype, gen).to(self.device)
         target = copy.deepcopy(critic).requires_grad_(False)
         ac = ACTrainState(actor=actor, critic=critic, target_critic=target,
-                          actor_opt=AdamState.zeros_like(actor),
-                          critic_opt=AdamState.zeros_like(critic),
+                          actor_opt=AdamState.zeros_like(actor, self._blocks(actor)),
+                          critic_opt=AdamState.zeros_like(critic, self._blocks(critic)),
                           s_scale=torch.ones((), device=self.device))
-        wm = WMTrainState(nets=self.rssm.nets, opt=AdamState.zeros_like(self.rssm.nets))
+        wm = WMTrainState(nets=self.rssm.nets, opt=AdamState.zeros_like(
+            self.rssm.nets, self._blocks(self.rssm.nets)))
         return DreamerState(wm=wm, ac=ac,
                             step=torch.zeros((), dtype=torch.int32, device=self.device))
 

@@ -29,7 +29,10 @@ count of the likelihoods' denominator and the KL means are summed over the
 ranks, so free bits clamp the global mean (a rank's gradient of a KL term
 flows where the global mean is at or above ``free_bits``); the gradients
 are averaged and the update skipped on every rank where any rank's loss is
-not finite (``MeshPlan.reduce_update``).
+not finite (``MeshPlan.reduce_update``).  Under the model axis a rank
+computes the step of its block of each sharded weight and keeps the moments
+of that block (``AdamState.blocks``); ``MeshPlan.gather_weights`` writes
+every rank's blocks, so each rank's weights stay whole.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from dreamer_tpu_torch.core.dists import categorical_kl
 from dreamer_tpu_torch.core.math import bucket_values, twohot
 from dreamer_tpu_torch.parallel.sharding import MeshPlan
 from dreamer_tpu_torch.rssm.rssm import RSSM
-from dreamer_tpu_torch.train.agent import AdamW, adamw_update, global_norm
+from dreamer_tpu_torch.train.agent import AdamW, adamw_update, global_norm, write_update
 from dreamer_tpu_torch.train.debug import check_finite
 from dreamer_tpu_torch.train.state import WMTrainState
 
@@ -207,8 +210,11 @@ def wm_update(rssm: RSSM, opt: AdamW, state: WMTrainState, batch: Sequence[Tenso
                           *((f"the updated {k}", p) for k, p in zip(names, new))])
         metrics["wm/grad_norm"] = global_norm(grads)
         metrics["wm/update_skipped"] = (~finite).float()
-        for dst, src in ((params, new), (state.opt.mu, opt_state.mu),
-                         (state.opt.nu, opt_state.nu), ([state.opt.count], [opt_state.count])):
+        for dst, src in ((state.opt.mu, opt_state.mu), (state.opt.nu, opt_state.nu),
+                         ([state.opt.count], [opt_state.count])):
             for d, s in zip(dst, src):
                 d.copy_(torch.where(finite, s, d))
+        sharded = write_update(params, new, state.opt.blocks, finite)
+        if sharded:
+            plan.gather_weights(sharded)
     return state, metrics

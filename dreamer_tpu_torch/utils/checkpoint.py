@@ -24,14 +24,17 @@ a CPU tensor is cloned.  ``wait_until_finished`` blocks until the last save
 has landed and raises what its write raised; ``save``, ``latest_step`` and
 ``restore_latest`` call it first.
 
-Under a data-parallel ``plan`` (``parallel.MeshPlan``) a checkpoint is a
-state file and one shard file a rank: rank 0 writes ``ckpt_{step}`` (the
-state, the same on every rank, with the world size), and each rank writes
-``ckpt_{step}.rank{r}`` (its ring shard and its own generator).  ``LATEST``
-moves only after a barrier shows that every rank's files landed: at once
-for a synchronous save, at the next save or wait for an asynchronous one
-(every rank calls them alike).  A restore refuses a checkpoint of another
-world size, naming both; it returns the state merged with this rank's shard.
+Under a ``plan`` (``parallel.MeshPlan``) a checkpoint is a state file and
+one shard file a rank: rank 0 writes ``ckpt_{step}`` (what is the same on
+every rank, the whole weights included, with the world size and the mesh
+shape), and each rank writes ``ckpt_{step}.rank{r}`` (its own generator, its
+blocks of the model axis's moments, and on a model group's first rank the
+group's ring).  ``LATEST`` moves only after a barrier shows that every
+rank's files landed: at once for a synchronous save, at the next save or
+wait for an asynchronous one (every rank calls them alike).  A restore
+refuses a checkpoint of another mesh shape (``[2, 1]`` and ``[1, 2]`` are
+both two ranks), naming both; it returns the state merged with this rank's
+shard and, where that holds no ring, the ring of its group's first rank.
 The checkpoint directory must be one that every rank sees.
 """
 
@@ -86,8 +89,8 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}")
 
-    def _shard_path(self, step: int) -> str:
-        return f"{self._path(step)}.rank{self.plan.rank}"
+    def _shard_path(self, step: int, rank: Optional[int] = None) -> str:
+        return f"{self._path(step)}.rank{self.plan.rank if rank is None else rank}"
 
     def save(self, step: int, tree: Any, shard: Any = None) -> str:
         """Write the checkpoint of ``step``, point ``LATEST`` at it and prune
@@ -209,16 +212,24 @@ class CheckpointManager:
     def restore(self, step: int) -> Any:
         self.wait_until_finished()
         tree = load(self._path(step))
-        saved = tree.get("world_size") if isinstance(tree, dict) else None
-        world = None if self.plan is None else self.plan.world_size
-        if saved != world:
-            def name(n):
-                return "one process without a mesh" if n is None else f"{n} ranks"
+        saved = None
+        if isinstance(tree, dict) and tree.get("world_size") is not None:
+            # A checkpoint of the data axis alone may carry no mesh shape.
+            saved = tuple(tree.get("mesh_shape") or (tree["world_size"], 1))
+        mesh = None if self.plan is None else tuple(self.plan.mesh_shape)
+        if saved != mesh:
+            def name(shape):
+                if shape is None:
+                    return "one process without a mesh"
+                return f"{shape[0] * shape[1]} ranks as mesh [{shape[0]}, {shape[1]}]"
             raise ValueError(f"checkpoint {self._path(step)} was written by {name(saved)}, "
-                             f"this run is {name(world)}: resume it at the world size that "
-                             "wrote it")
+                             f"this run is {name(mesh)}: resume it at the mesh that wrote it")
         if self.plan is not None:
             tree.update(load(self._shard_path(step)))
+            if "buffer" not in tree and self.plan.group_first != self.plan.rank:
+                ring = load(self._shard_path(step, self.plan.group_first)).get("buffer")
+                if ring is not None:
+                    tree["buffer"] = ring
         return tree
 
     def restore_latest(self) -> Optional[Tuple[int, Any]]:

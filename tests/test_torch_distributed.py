@@ -4,7 +4,11 @@ the port of ``tests/test_distributed.py``.  Each process is one rank of
 this file as a script (``rank_main``): ``configs/fake_smoke.yaml`` for 2
 iterations (4 envs on the host: 2 a rank), a checkpoint, then a resume into
 a third iteration from a fresh ``Dreamer``, and prints ``CHECKSUM <value>``
-of its parameters.  The two ranks' checksums must agree (the learner stays
+of its parameters.  The ``model_axis`` case runs ``runtime.mesh_shape=[1,2]``
+instead: both ranks hold all 4 envs' ring, rank 0 steps them and broadcasts
+each round, and each keeps the moments of its half of the sharded weights
+(the GRU 64 wide shards nothing at fake_smoke's widths, so the case widens
+the GRU and the latents).  The two ranks' checksums must agree (the learner stays
 in lockstep); only rank 0 writes ``metrics.csv``; ``LATEST`` names the last
 checkpoint and every rank wrote its shard of it.  Once with synchronous
 checkpoints, once with ``runtime.async_checkpoint``.  Marked slow (two
@@ -29,8 +33,10 @@ def _free_port() -> int:
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("extra", [[], ["runtime.async_checkpoint=true"]],
-                         ids=["sync", "async_checkpoint"])
+@pytest.mark.parametrize("extra", [[], ["runtime.async_checkpoint=true"],
+                                   ["runtime.mesh_shape=[1,2]", "wm.hidden_dim=128",
+                                    "wm.latent_rows=16", "wm.latent_classes=16"]],
+                         ids=["sync", "async_checkpoint", "model_axis"])
 def test_two_process_train_and_resume(tmp_path, extra):
     port = _free_port()
     procs = []
@@ -93,8 +99,17 @@ def rank_main(out_dir: str, extra) -> None:
 
     try:
         d = Dreamer(make_cfg(2), device="cpu")
-        assert d.farm.num_envs == 2 and d.trainer.cfg.env.num_envs == 4
-        assert d.buf.obs.shape[0] == 2 and d.metrics.enabled == (rank == 0)
+        n_data, n_model = d.plan.mesh_shape
+        envs = 4 // n_data
+        assert d.trainer.cfg.env.num_envs == 4 and d.buf.obs.shape[0] == envs
+        if rank % n_model == 0:
+            assert d.farm.num_envs == envs
+        else:   # its model group's first rank steps the envs
+            assert d.farm is None
+        if n_model > 1:   # the moments of the sharded weights are a rank's half
+            blocks = [b for b in d.state.wm.opt.blocks if b is not None]
+            assert blocks and all(b.index == rank for b in blocks)
+        assert d.metrics.enabled == (rank == 0)
         d.train(progress=distributed.is_primary())
         d.close()
         assert d.iteration == 2
@@ -102,7 +117,8 @@ def rank_main(out_dir: str, extra) -> None:
         d2.train(resume=True, progress=distributed.is_primary())
         d2.close()
         assert d2.iteration == 3, d2.iteration
-        assert d2._rank_offset == rank * 100_003   # the rank's own env seeds
+        # The data index's own env seeds.
+        assert d2._rank_offset == (rank // n_model) * 100_003
         params = [*d2.state.wm.nets.parameters(), *d2.state.ac.actor.parameters(),
                   *d2.state.ac.critic.parameters()]
         total = sum(float(p.detach().double().abs().sum()) for p in params)

@@ -251,11 +251,12 @@ def test_batched_eval_compacts_episodes_of_mixed_lengths(tmp_path):
     assert d._eval_seed == d.cfg.train.seed + 10_000 + 5
 
 
-# knob: (device, the refusal).  The mesh's model axis is not ported (its data
-# axis is).  An overlapped rollout without the host-local actor is refused as
-# JAX refuses it.  A float32 config is refused on a CUDA device (its kernels
-# take bf16), which the CPU test names without launching anything.
-REFUSED = {"runtime.mesh_shape=[1, 2]": ("cpu", "ROADMAP Queue 1 item 8"),
+# knob: (device, the refusal).  A mesh whose n x m is not the world size (one
+# process here; the model axis itself runs).  An overlapped rollout without
+# the host-local actor is refused as JAX refuses it.  A float32 config is
+# refused on a CUDA device (its kernels take bf16), which the CPU test names
+# without launching anything.
+REFUSED = {"runtime.mesh_shape=[1, 2]": ("cpu", "needs 2 ranks, the world has 1"),
            "runtime.async_rollout=true": ("cpu", "requires runtime.rollout_device='cpu'"),
            "runtime.compute_dtype=float32": ("cuda", "bfloat16 only")}
 

@@ -13,7 +13,7 @@ against one process and against JAX's shard-aware replay draw.
   from the global ones, and a NaN in one rank's rows skips the update on
   both.  Each case also runs with its collective left out (a plan without
   it), and then fails.
-- ``make_mesh``, the model axis's refusal, ``init_distributed``'s no-op and
+- ``make_mesh`` and its model axis, ``init_distributed``'s no-op and
   its refusal of NCCL on a shared card, the metrics logger of a rank that
   does not write, and the checkpoint's world-size refusal.
 - One rank's ``Dreamer`` (torchrun's variables set, no process group, so
@@ -418,12 +418,22 @@ def test_each_collective_mutant_changes_one_line_of_its_source():
 
 def test_make_mesh_and_the_model_axis(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
     mesh = make_mesh(1, 1)
     assert (mesh.n_data, mesh.n_model, mesh.rank, mesh.world_size) == (1, 1, 0, 1)
     with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
         make_mesh(2, 1)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
-        make_mesh(1, 2)
+    # The model axis: in a world of 2, [1, 2] puts both ranks at data index
+    # 0, rank r at model index r; a mesh of another size is refused.
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for r in range(2):
+        monkeypatch.setenv("RANK", str(r))
+        mesh = make_mesh(1, 2)
+        assert (mesh.n_data, mesh.n_model, mesh.data_index, mesh.model_index) == (1, 2, 0, r)
+    for shape in ((2, 2), (1, 4), (4, 1)):
+        with pytest.raises(ValueError, match=f"needs {shape[0] * shape[1]} ranks, the world "
+                                             "has 2"):
+            make_mesh(*shape)
 
 
 def test_init_distributed(monkeypatch):
@@ -454,7 +464,7 @@ def test_a_rank_that_does_not_log_writes_nothing(tmp_path):
 
 def test_a_checkpoint_resumes_only_at_its_world_size(tmp_path):
     class Plan:   # one rank of two, as far as the manager can see
-        rank, world_size = 0, 2
+        rank, world_size, mesh_shape, group_first = 0, 2, (2, 1), 0
 
         def barrier(self):
             pass
@@ -465,10 +475,12 @@ def test_a_checkpoint_resumes_only_at_its_world_size(tmp_path):
                                                                    "ckpt_4.rank0"]
     step, tree = sharded.restore_latest()
     assert step == 4 and torch.equal(tree["buffer"], torch.arange(3))
-    with pytest.raises(ValueError, match="written by 2 ranks, this run is one process"):
+    with pytest.raises(ValueError, match=r"written by 2 ranks as mesh \[2, 1\], this run is "
+                                         "one process"):
         CheckpointManager(str(tmp_path / "a")).restore_latest()
     CheckpointManager(str(tmp_path / "b")).save(2, {"iteration": 2})
-    with pytest.raises(ValueError, match="one process without a mesh, this run is 2 ranks"):
+    with pytest.raises(ValueError, match=r"one process without a mesh, this run is 2 ranks "
+                                         r"as mesh \[2, 1\]"):
         CheckpointManager(str(tmp_path / "b"), plan=Plan()).restore_latest()
     # Pruning takes a step's shards with it.
     for step in (5, 6, 7):
